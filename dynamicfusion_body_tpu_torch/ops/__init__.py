@@ -1,0 +1,1 @@
+"""Port of dynamicfusion_body_tpu/ops."""
