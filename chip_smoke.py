@@ -13,29 +13,46 @@ Phases, each of which raises on failure (exit code 1):
   2. K2 (warp_trilerp_bricks_cached) against its plain twin on the 256³
      bench state with perturbed node DQs and a clipped live TSDF, so that
      both mip-certified classes occur;
-  3. the bench scene (bench.py): init_canonical, 2 warm-up frames and 3
+  3. K3 (warp_trilerp_bricks) at config 4's 256³ shapes, with perturbed
+     node DQs so that the blend depends on the Gaussian weights, against
+     its twin (wi exact, valid exact but at the volume's faces, coordinates
+     and values within 1e-4) and against the warp cache + K2;
+  4. K4 (trilerp_bricks) at K3's coordinates: bit-equal to its twin in the
+     volume; timed beside grid_sample. K4 is on no path of the system (as
+     in the JAX package), so its launch count on the paths is 0;
+  5. K2 and K3 on a 72³ canonical lattice over a 65³ live volume, and the
+     update's kernel arm against its plain arm there;
+  6. benchmarks/suite.py config 4: the non-rigid update at 256³ without
+     caches (K3 once per call), 3 timed calls, the plain arm (p99.9
+     |Δvalues| < 0.5);
+  7. the bench scene (bench.py): init_canonical, 2 warm-up frames and 3
      timed frames of fusion_frame at 256³ with the bench's settings and
      exact kNN, through the kernels; both kernels must have launched, no
      mesh may overflow its cap (the 4096-node pool is full from
      init_canonical on, so FrameStats.overflow is reported, not checked)
      and every frame must keep tracking (energy per correspondence after
-     the solve below TRACK_MAX);
-  4. one frame of the plain arm (use_kernels=False) from the state of the
-     last timed frame: p99.9 |Δtsdf| < 0.5 (bench gate 1);
-  5. K5 (fuse_depth_multi) against its plain twin at 256³ on the inputs of
+     the solve below TRACK_MAX); then one frame of the plain arm
+     (use_kernels=False) from the state of the last timed frame: p99.9
+     |Δtsdf| < 0.5 (bench gate 1);
+  8. K5 (fuse_depth_multi) against its plain twin at 256³ on the inputs of
      benchmarks/suite.py config 6: meshes/original.obj rendered from 8 yaw
      views at 512² by the port's render_depth, the grid from
      estimate_alignment; from an empty volume and from a half-fused one
      whose weights are near WMAX, so the running average and the clamp run;
-  6. config 6 through FusionDM at 256³ (a warm call, timed calls and one
+  9. config 6 through FusionDM at 256³ (a warm call, timed calls and one
      profiled call of compute_live_tsdf, then marching_cubes): K5 and K1
      must have launched, and the vertices seen by >= 3 views must lie on
      the mesh within a mean of 1 voxel and a p95 of 2 voxels (the mesh
      overflows its 2^17-vertex cap, so the share of the surface the scored
      vertices cover is printed beside the score);
-  7. the ICP branch (useICP=True) at 256³ with the first 3 views: a finite
-     volume, correspondences, and the recovered pose.
-The last lines are the kernel table and the card as JSON, then
+  10. the ICP branch (useICP=True) at 256³ with the first 3 views: a
+     finite volume, correspondences, and the recovered pose;
+  11. benchmarks/suite.py config 7 at 256³ through the port's Fusion: the
+     reference mesh bent by 0.08, 0.16 and 0.24 rad, per frame a live
+     TSDF fused on the canonical lattice and setupCorrespondences → solve
+     → updateTSDF → update_graph; K1, K2 and K5 must have launched and the
+     final surface error must be below the untracked one.
+The last lines are the kernel table as JSON, the card, then
 ``{"ok": true, "device": {...}}``. No result is printed without a GPU.
 """
 
@@ -75,6 +92,14 @@ F32_OPS = 67e12
 # f32 operations per voxel of K2 (k = 3: blend 40, normalize 25, two
 # dual-quaternion sandwiches 352, bounds 6) and per trilerped voxel (40)
 K2_OPS_VOXEL, K2_OPS_TRILERP = 423, 40
+# K3, per voxel: d2 for each active candidate slot 8; k argmin passes of
+# C-1 compares; per pick sqrt, min, compares, division, 2 multiplies,
+# negation and exp ~10, the blend 16, wi 2; fixed: normalize 25, two
+# sandwiches 352, bounds 6, trilerp 40, wi division 2
+K3_OPS_SLOT, K3_OPS_PICK, K3_OPS_FIXED = 8, 28, 425
+# the global pose of benchmarks/suite.py config 4 and the Fusion driver
+LW_REF = (1.0, 0.0, 0.0, 0.0, 0.0, 0.1, 0.0, 0.0)
+ANGLES7 = (0.08, 0.16, 0.24)  # config 7's bends, rad
 # K5, per voxel and view: projection and bounds test 24 (u, v, pw: 18;
 # 2 divisions; 4 compares), in-bounds sample and signed distance 29, the
 # running-average update 7
@@ -254,6 +279,253 @@ def live_taps(torch, shape, coords):
     return int(torch.sum(tapped))
 
 
+def phase_k3(torch, dev, live, wf):
+    """K3 at config 4's shapes: the 256³ bench canonical's node field, its
+    two-level brick candidates (C = 16), k = 3, the live volume of
+    benchmarks/suite.py config 4. Every node of that field holds the same
+    DQ, and a normalized blend of equal DQs ignores its weights, so the
+    node DQs are perturbed here, as in phase K2. Held to its twin, and to
+    the cache builder followed by K2 (no mip certificate). Returns
+    (kernel-table row, K3's coordinates for phase K4)."""
+    from dynamicfusion_body_tpu_torch.models.warp_field import (
+        brick_candidates_2level, build_warp_cache)
+    from dynamicfusion_body_tpu_torch.ops.trilerp_cuda import (
+        warp_trilerp_bricks, warp_trilerp_bricks_cached,
+        warp_trilerp_bricks_ref)
+
+    rng = np.random.default_rng(4)
+    noise = torch.from_numpy(
+        (0.02 * rng.standard_normal((wf.capacity, 8))).astype(np.float32))
+    wf = wf.replace(node_dq=wf.node_dq + noise.to(dev))
+    cand = brick_candidates_2level(wf, (RES,) * 3, 8, 16)
+    lw = torch.tensor(LW_REF, dtype=torch.float32, device=dev)
+    k = 3
+    args = (live, wf.node_pos, wf.node_w, wf.active, wf.node_dq, cand, lw)
+    kw = dict(brick=8, k=k)
+    got = warp_trilerp_bricks(*args, **kw)
+    ref = warp_trilerp_bricks_ref(*args, **kw)
+    sel, selw, wi_c = build_warp_cache(wf, (RES,) * 3, cand, k, 8)
+    k2 = warp_trilerp_bricks_cached(live, wf.node_dq, cand, sel, selw, lw,
+                                    brick=8)
+    torch.cuda.synchronize()
+    vals, valid, wi, wx, wy, wz = got
+    r_vals, r_valid, r_wi, r_wx, r_wy, r_wz = ref
+    check(torch.equal(wi, r_wi), "K3 wi differs from its twin")
+    check(torch.equal(wi, wi_c), "K3 wi differs from build_warp_cache")
+    err_w = max(float(torch.max(torch.abs(a - b)))
+                for a, b in ((wx, r_wx), (wy, r_wy), (wz, r_wz)))
+    # valid may flip only for a coordinate within K2_TOL_COORD of a face
+    rs = RES - 1.0
+    edge = torch.zeros_like(valid)
+    for c in (r_wx, r_wy, r_wz):
+        edge |= (torch.abs(c) <= K2_TOL_COORD) | (torch.abs(c - rs)
+                                                  <= K2_TOL_COORD)
+    n_vflip = int(torch.sum(valid != r_valid))
+    check(not bool(torch.any((valid != r_valid) & ~edge)),
+          "K3 valid differs from its twin away from the volume's faces")
+    both = valid & r_valid
+    err_v = float(torch.max(torch.abs(torch.where(both, vals - r_vals, 0.0))))
+    check(err_w <= K2_TOL_COORD, f"K3 coords differ by {err_w}")
+    check(err_v <= K2_TOL_VAL, f"K3 values differ by {err_v}")
+    n_neq = int(torch.sum((vals != r_vals) | (wx != r_wx) | (wy != r_wy)
+                          | (wz != r_wz)))
+    n_neq_k2 = int(torch.sum((vals != k2[0]) | (wx != k2[2]) | (wy != k2[3])
+                             | (wz != k2[4]) | (valid != k2[1])))
+    err_k2 = max(float(torch.max(torch.abs(a - b)))
+                 for a, b in ((wx, k2[2]), (wy, k2[3]), (wz, k2[4]),
+                              (torch.where(both, vals, 0.0),
+                               torch.where(both, k2[0], 0.0))))
+    check(err_k2 <= K2_TOL_COORD, f"K3 differs from cache + K2 by {err_k2}")
+    ms = cuda_ms(torch, lambda: warp_trilerp_bricks(*args, **kw))
+    plain = cuda_ms(torch, lambda: warp_trilerp_bricks_ref(*args, **kw),
+                    reps=3)
+    nb, v = vals.shape
+    C = cand.shape[1]
+    n_taps = live_taps(torch, live.shape, (wx, wy, wz))
+    n_act = int(torch.sum(wf.active[cand]))  # active candidate slots
+    M = wf.capacity
+    nbytes = (4 * n_taps + M * (12 + 4 + 1 + 32) + 4 * cand.numel() + 32
+              + 5 * 4 * nb * v + nb * v)
+    nops = (K3_OPS_SLOT * n_act * v
+            + nb * v * (k * (C - 1) + k * K3_OPS_PICK + K3_OPS_FIXED))
+    row = dict(max_abs_err=max(err_w, err_v), ms=ms, plain_ms=plain,
+               **bound(nbytes, nops), library_ms=None)
+    print(f"# K3 {RES}^3 (NB {nb}, C {C}, k {k}): wi equal to the twin and "
+          f"to build_warp_cache; valid flips {n_vflip} (at the faces); "
+          f"coord err {err_w:.3g}, value err {err_v:.3g}; voxels not "
+          f"bit-equal to the twin {n_neq}, to cache + K2 {n_neq_k2} (max "
+          f"diff {err_k2:.3g}); kernel {ms:.4f} ms, twin {plain:.4f} ms; "
+          f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}; bytes "
+          f"{nbytes / HBM_BPS * 1e3:.4f} ms for {nbytes / 1e6:.1f} MB, ops "
+          f"{nops / F32_OPS * 1e3:.4f} ms for {nops / 1e9:.3f} G; live cells "
+          f"tapped {n_taps})")
+    return row, (wx, wy, wz)
+
+
+def phase_k4(torch, live, coords):
+    """K4 at K3's output coordinates on config 4's live volume: bit-equal
+    to its twin on in-volume samples; timed beside the twin and beside
+    grid_sample, the one PyTorch call computing the same trilerp."""
+    import torch.nn.functional as F
+
+    from dynamicfusion_body_tpu_torch.ops.trilerp_cuda import (
+        trilerp_bricks, trilerp_bricks_ref)
+
+    wx, wy, wz = coords
+    vals, valid, esc = trilerp_bricks(live, wx, wy, wz)
+    r_vals, r_valid, _ = trilerp_bricks_ref(live, wx, wy, wz)
+    rx, ry, rz = live.shape
+    grid = torch.stack([2.0 * wz / (rz - 1) - 1.0, 2.0 * wy / (ry - 1) - 1.0,
+                        2.0 * wx / (rx - 1) - 1.0], dim=-1)
+    grid = grid.reshape(1, wx.shape[0], wx.shape[1], 1, 3)
+    inp = live[None, None]
+
+    def library():
+        return F.grid_sample(inp, grid, mode="bilinear", padding_mode="zeros",
+                             align_corners=True)
+
+    lib_vals = library().reshape(wx.shape)
+    torch.cuda.synchronize()
+    check(torch.equal(valid, r_valid), "K4 valid differs from its twin")
+    check(not bool(esc.any()), "K4 escaped a sample")
+    err = float(torch.max(torch.abs(torch.where(valid, vals - r_vals, 0.0))))
+    n_neq = int(torch.sum(valid & (vals != r_vals)))
+    check(n_neq == 0, f"K4 is not bit-equal to its twin in the volume: "
+          f"{n_neq} samples, max {err}")
+    err_lib = float(torch.max(torch.abs(torch.where(valid, vals - lib_vals,
+                                                    0.0))))
+    ms = cuda_ms(torch, lambda: trilerp_bricks(live, wx, wy, wz))
+    plain = cuda_ms(torch, lambda: trilerp_bricks_ref(live, wx, wy, wz),
+                    reps=3)
+    lib_ms = cuda_ms(torch, library)
+    n = wx.numel()
+    n_taps = live_taps(torch, live.shape, coords)
+    nbytes = 12 * n + 4 * n_taps + 5 * n
+    nops = n * (K2_OPS_TRILERP + 6)
+    row = dict(max_abs_err=err, ms=ms, plain_ms=plain, **bound(nbytes, nops),
+               library_ms=lib_ms)
+    print(f"# K4 {n} samples ({int(valid.sum())} in the volume): bit-equal "
+          f"to its twin there; grid_sample differs by {err_lib:.3g}; kernel "
+          f"{ms:.4f} ms, twin {plain:.4f} ms, grid_sample {lib_ms:.4f} ms; "
+          f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}; "
+          f"{nbytes / 1e6:.1f} MB, {nops / 1e9:.3f} G operations)")
+    return row
+
+
+def phase_padded(torch, dev):
+    """K2 and K3 on a 72³ canonical lattice over a 65³ live volume (the
+    reference's .dist size, padded to the brick as Fusion.updateTSDF pads
+    it), against their twins; then the update on the kernel arm against the
+    plain arm."""
+    from bench import bumpy_sdf
+    from dynamicfusion_body_tpu_torch.models.warp_field import (
+        update_tsdf_nonrigid)
+    from dynamicfusion_body_tpu_torch.ops.trilerp_cuda import (
+        warp_trilerp_bricks, warp_trilerp_bricks_cached,
+        warp_trilerp_bricks_cached_ref, warp_trilerp_bricks_ref)
+    from dynamicfusion_body_tpu_torch.pipeline.frame import (
+        _build_caches, init_canonical)
+
+    canon = torch.from_numpy(bumpy_sdf(65, (32, 32, 32), 18.0, 1.0, 3.0,
+                                       0.0)).to(dev)
+    live = torch.from_numpy(bumpy_sdf(65, (33, 32, 32), 18.0, 1.0, 3.0,
+                                      0.1)).to(dev)
+    tdist = float(canon.max())
+    values = torch.nn.functional.pad(canon, (0, 7) * 3, value=tdist)
+    shape = tuple(values.shape)
+    wf, _ = init_canonical(canon, subsample_rate=1.5, node_cap=1024,
+                           mc_step=2, vert_cap=1 << 14, face_cap=1 << 15)
+    rng = np.random.default_rng(3)
+    noise = rng.standard_normal((wf.capacity, 8)).astype(np.float32) * 0.02
+    wf = wf.replace(node_dq=wf.node_dq + torch.from_numpy(noise).to(dev))
+    lw = torch.tensor(LW_REF, dtype=torch.float32, device=dev)
+    (cand, risk), (sel, selw, wi) = _build_caches(wf, shape, 8, 16, 3, False)
+    k2 = warp_trilerp_bricks_cached(live, wf.node_dq, cand, sel, selw, lw,
+                                    brick=8, vol_shape=shape)
+    k2r = warp_trilerp_bricks_cached_ref(live, wf.node_dq, cand, sel, selw,
+                                         lw, brick=8, vol_shape=shape)
+    args = (live, wf.node_pos, wf.node_w, wf.active, wf.node_dq, cand, lw)
+    k3 = warp_trilerp_bricks(*args, vol_shape=shape, brick=8, k=3)
+    k3r = warp_trilerp_bricks_ref(*args, vol_shape=shape, brick=8, k=3)
+    torch.cuda.synchronize()
+    errs = []
+    for name, got, ref in (("K2", k2, k2r), ("K3", k3, k3r)):
+        check(torch.equal(got[1], ref[1]), f"{name} padded: valid differs")
+        err = float(torch.max(torch.abs(torch.where(ref[1], got[0] - ref[0],
+                                                    0.0))))
+        for g, r in zip(got[2:], ref[2:]):  # (wi,) wx, wy, wz
+            err = max(err, float(torch.max(torch.abs(g - r))))
+        check(err <= K2_TOL_COORD, f"{name} padded differs by {err}")
+        errs.append(err)
+    n_out = int(torch.sum(~k3r[1]))
+    kw = dict(k=3, tdist=tdist, brick=8, n_candidates=16)
+    arms = {}
+    for cached in (False, True):
+        for kern in (True, False):
+            arms[cached, kern] = update_tsdf_nonrigid(
+                values, torch.zeros_like(values), live, wf, lw,
+                use_kernels=kern, cand_cache=(cand, risk),
+                warp_cache=(sel, selw, wi) if cached else None, **kw)
+    dev_max = max(float(torch.max(torch.abs(arms[c, True][i]
+                                            - arms[c, False][i])))
+                  for c in (False, True) for i in (0, 1))
+    check(dev_max <= 1e-3, f"padded update: kernel arm deviates {dev_max}")
+    check(all(bool(torch.isfinite(a[0]).all()) for a in arms.values()),
+          "padded update: non-finite TSDF")
+    print(f"# padded lattice {shape} over live {tuple(live.shape)}: K2 and "
+          f"K3 match their twins (max err {errs[0]:.3g}, {errs[1]:.3g}); "
+          f"{n_out} samples outside the live volume; update kernel vs plain "
+          f"arm max |d| {dev_max:.3g}")
+
+
+def phase_config4(torch, dev, canonical, live, wf):
+    """benchmarks/suite.py config 4 (suite.py:193-226): DQB skinning and the
+    non-rigid update at 256³ without caches, through K3: a warm call, 3
+    timed calls, then the plain arm once."""
+    from dynamicfusion_body_tpu_torch.models.warp_field import (
+        update_tsdf_nonrigid)
+    from dynamicfusion_body_tpu_torch.ops.trilerp_cuda import (
+        warp_trilerp_bricks)
+
+    tdist = float(canonical.max())
+    lw = torch.tensor(LW_REF, dtype=torch.float32, device=dev)
+    zeros = torch.zeros_like(canonical)
+
+    def f(use_kernels):
+        return update_tsdf_nonrigid(canonical, zeros, live, wf, lw, k=3,
+                                    tdist=tdist, brick=8, n_candidates=16,
+                                    use_kernels=use_kernels)
+
+    warp_trilerp_bricks.launches = 0
+    f(True)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        v, w, esc, risk = f(True)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = warp_trilerp_bricks.launches
+    check(launches == 4, f"config 4: K3 launched {launches} times in 4 "
+          "calls")
+    pv, pw, _, p_risk = f(False)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(v).all() and torch.isfinite(w).all()),
+          "config 4: non-finite TSDF")
+    dv = torch.abs(v - pv).cpu().numpy()
+    dw = torch.abs(w - pw).cpu().numpy()
+    p_v, p_w = float(np.percentile(dv, 99.9)), float(np.percentile(dw, 99.9))
+    print(f"# config 4 at {RES}^3 (no caches, K3): update ms "
+          f"{[round(t, 3) for t in times]} (median {np.median(times):.3f}); "
+          f"pool_risk {int(risk)} (plain arm {int(p_risk)}); kernel vs plain "
+          f"arm |dvalues| p99.9 {p_v:.3g} max {float(dv.max()):.3g}, "
+          f"|dweights| p99.9 {p_w:.3g} max {float(dw.max()):.3g}; updated "
+          f"voxels {int(torch.sum(w > 0))}; launches K3 {launches}")
+    check(p_v < GATE_DEV_P999 and p_w < GATE_DEV_P999,
+          f"config 4: kernel arm deviates (p99.9 {p_v}, {p_w})")
+    return launches
+
+
 def run_frame(torch, fusion_frame, state, live, hyper):
     values, weights, wf, lw, mesh = state
     torch.cuda.synchronize()
@@ -302,17 +574,30 @@ def config6_views(torch, dev):
     faces, depths (8,512,512) on the card, lws (8,3,4) numpy)."""
     from dynamicfusion_body_tpu_torch.io.mesh_io import (
         load_obj, regularize_mesh)
-    from dynamicfusion_body_tpu_torch.ops.transforms import rotation_matrix
-    from dynamicfusion_body_tpu_torch.render.raster import render_depth
 
     verts, faces = load_obj(ROOT / "meshes" / "original.obj")
     verts = regularize_mesh(verts)
-    tv = torch.from_numpy(verts).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    depths, lws = render_views(torch, dev, verts, faces)
+    torch.cuda.synchronize()
+    hits = [int(torch.sum(d != 0)) for d in depths]
+    check(min(hits) > 10000, f"renders with few hits: {hits}")
+    print(f"# config 6: {len(verts)} verts {len(faces)} faces; 8 views "
+          f"rendered in {time.perf_counter() - t0:.3f} s; hit pixels {hits}")
+    return verts, faces, depths, lws
+
+
+def render_views(torch, dev, verts, faces):
+    """The 8 yaw views of benchmarks/suite.py:53-72 (dist 2.5, 512², S=8)
+    of a mesh, rendered on the card: (depths (8,512,512), lws (8,3,4))."""
+    from dynamicfusion_body_tpu_torch.ops.transforms import rotation_matrix
+    from dynamicfusion_body_tpu_torch.render.raster import render_depth
+
+    tv = torch.from_numpy(np.ascontiguousarray(verts)).to(dev)
     tf = torch.from_numpy(faces).long().to(dev)
     fmask = torch.ones(len(faces), dtype=torch.bool, device=dev)
     K = torch.from_numpy(K6).to(dev)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     depths, lws = [], []
     for i in range(N_VIEWS):
         R = rotation_matrix(2 * np.pi * i / N_VIEWS, [0, 1, 0])[:3, :3]
@@ -322,13 +607,7 @@ def config6_views(torch, dev):
                                    torch.from_numpy(lw).to(dev), IMG, IMG,
                                    S=8))
         lws.append(lw)
-    depths = torch.stack(depths)
-    torch.cuda.synchronize()
-    hits = [int(torch.sum(d != 0)) for d in depths]
-    check(min(hits) > 10000, f"renders with few hits: {hits}")
-    print(f"# config 6: {len(verts)} verts {len(faces)} faces; 8 views "
-          f"rendered in {time.perf_counter() - t0:.3f} s; hit pixels {hits}")
-    return verts, faces, depths, np.stack(lws)
+    return torch.stack(depths), np.stack(lws)
 
 
 def phase_k5(torch, dev, depths, lws):
@@ -531,6 +810,100 @@ def phase_icp(torch, dev, depths, lws):
           f"{mc_case_cross.launches}")
 
 
+def phase_config7(torch, dev, verts, faces, depths0, lws):
+    """benchmarks/suite.py config 7 at 256³ (suite.py:341-496) through the
+    port's Fusion: the reference mesh's 8-view canonical TSDF, then per
+    bend a live TSDF fused on the same lattice and the reference flow
+    setupCorrespondences → solve → updateTSDF → update_graph. Scores the
+    observed canonical vertices' point-to-surface error per frame."""
+    from scipy.spatial import cKDTree
+
+    from dynamicfusion_body_tpu_torch.models.tsdf_volume import TsdfVolume
+    from dynamicfusion_body_tpu_torch.ops.fusion_cuda import fuse_depth_multi
+    from dynamicfusion_body_tpu_torch.ops.interp import trilinear
+    from dynamicfusion_body_tpu_torch.ops.mc_cuda import mc_case_cross
+    from dynamicfusion_body_tpu_torch.ops.trilerp_cuda import (
+        warp_trilerp_bricks_cached)
+    from dynamicfusion_body_tpu_torch.pipeline.fusion import Fusion, FusionDM
+    from dynamicfusion_body_tpu_torch.utils.profiling import PhaseTimer
+
+    sys.path.insert(0, str(ROOT / "benchmarks"))
+    from suite import _make_bend  # config 7's ground-truth bend
+
+    bend = _make_bend(verts)
+    kernels = (mc_case_cross, warp_trilerp_bricks_cached, fuse_depth_multi)
+    for kern in kernels:
+        kern.launches = 0
+    t_start = time.perf_counter()
+    dm = FusionDM(TDIST6, K6, tsdf_res=RES, vert_cap=1 << 17,
+                  face_cap=1 << 18)
+    canon_v, canon_w = dm.compute_live_tsdf(list(depths0.cpu().numpy()),
+                                            list(lws), UseAutoAlignment=True,
+                                            as_numpy=False)
+    ind = dm._IND
+    voxel = float(ind[0, 0])
+    fus = Fusion(canon_v, TDIST6, subsample_rate=16 / 3, knn=3,
+                 marching_cubes_step_size=3, write_warpfield=False,
+                 vert_cap=1 << 17, face_cap=1 << 18, node_cap=4096,
+                 live_vert_cap=1 << 18, live_face_cap=1 << 19)
+    m = fus._mesh
+    nv = int(m["n_verts"])
+    gv = m["verts"][:nv]
+    obs = (trilinear(canon_w, gv)[0] >= 3.0).cpu().numpy()
+    gv = gv.cpu().numpy()
+    wv = gv @ ind[:3, :3].T + ind[:3, 3]
+    surf = np.concatenate([verts, verts[faces].mean(1),
+                           0.5 * (verts[faces[:, 0]] + verts[faces[:, 1]])])
+    torch.cuda.synchronize()
+    print(f"# config 7 at {RES}^3: canonical fused and Fusion built in "
+          f"{time.perf_counter() - t_start:.2f} s: {nv} canonical vertices "
+          f"({int(obs.sum())} observed), {int(fus._warp.num_active)} nodes")
+
+    def p2s(pts, ang):
+        return cKDTree(bend(surf, ang)).query(pts, k=1)[0]
+
+    timer = PhaseTimer()
+    errs = []
+    for ang in ANGLES7:
+        t0 = time.perf_counter()
+        with timer.phase("render+fuse live", sync=canon_v):
+            bent, _ = render_views(torch, dev, bend(verts, ang), faces)
+            fresh = TsdfVolume.create(RES, TDIST6, ind=dm.volume.ind)
+            live_v, _ = dm._fuse(fresh.values, fresh.weights, bent, lws)
+        with timer.phase("setupCorrespondences", sync=canon_v):
+            fus.setupCorrespondences(live_v, method="clpts", tolerance=5.0,
+                                     live_mc_step=2)
+        with timer.phase("solve", sync=fus._lw):
+            fus.solve(regularization_weight=0.5, method="clpts")
+        with timer.phase("updateTSDF", sync=fus.volume.values):
+            fus.updateTSDF()
+        with timer.phase("update_graph", sync=fus._lw):
+            fus.update_graph()
+        frame_s = time.perf_counter() - t0
+        check(bool(torch.isfinite(fus.volume.values).all()
+                   and torch.isfinite(fus.volume.weights).all()),
+              "config 7: non-finite TSDF")
+        tracked = fus.warp(gv, m_lw=fus._lw) @ ind[:3, :3].T + ind[:3, 3]
+        errs.append(float(np.mean(p2s(tracked[obs], ang)) / voxel))
+        print(f"# config 7 frame (bend {ang} rad): {frame_s:.2f} s; "
+              f"surface error {errs[-1]:.4f} voxels; nodes "
+              f"{int(fus._warp.num_active)}; correspondences "
+              f"{int(fus._corr_valid.sum()) if fus._corr_valid is not None else 0}")
+    launches = {k.__name__: k.launches for k in kernels}
+    untracked = float(np.mean(p2s(wv[obs], ANGLES7[-1])) / voxel)
+    split = "; ".join(f"{name} {s['mean_s']:.3f} s" for name, s in
+                      timer.summary().items())
+    print(f"# config 7 per-frame phase means: {split}")
+    print(f"# config 7: surface error per frame {[round(e, 4) for e in errs]} "
+          f"voxels, untracked {untracked:.4f} (the README's TPU-era 2.6 "
+          f"voxels at 256^3, to check, not a gate); launches {launches}")
+    check(all(n > 0 for n in launches.values()),
+          f"config 7 launches {launches}")
+    check(errs[-1] < untracked, f"config 7 tracking: error {errs[-1]} not "
+          f"below the untracked {untracked}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -551,17 +924,38 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(f"# {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     dev = torch.device("cuda", 0)
+    t_run = time.perf_counter()
 
     _, build_s, log = cuda_lib.build()
     for line in log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
+        if any(w in line for w in ("entry function", "registers", "spill",
+                                   "error")):
             print(f"# nvcc: {line.strip()}")
     cuda_lib.lib()
     print(f"# kernels built in {build_s:.1f} s")
 
-    k1 = phase_k1(torch, dev)
+    def stamp(name):
+        print(f"# -- {name} done at {time.perf_counter() - t_run:.1f} s")
+
+    rows = {}
+    # launches of each kernel on the paths it serves (bench, config 4,
+    # config 6, config 7), each path's counts set to 0 just before it; K4
+    # (trilerp_bricks) serves none, so its count stays 0
+    total = dict.fromkeys(("mc_case_cross", "warp_trilerp_bricks_cached",
+                           "warp_trilerp_bricks", "trilerp_bricks",
+                           "fuse_depth_multi"), 0)
+    rows["mc_case_cross"] = phase_k1(torch, dev)
     canonical, lives, wf = bench_state(torch, dev)
-    k2 = phase_k2(torch, dev, lives, wf)
+    rows["warp_trilerp_bricks_cached"] = phase_k2(torch, dev, lives, wf)
+    stamp("K1, K2")
+    rows["warp_trilerp_bricks"], coords = phase_k3(torch, dev, lives[1], wf)
+    rows["trilerp_bricks"] = phase_k4(torch, lives[1], coords)
+    del coords
+    phase_padded(torch, dev)
+    stamp("K3, K4, padded lattice")
+    total["warp_trilerp_bricks"] = phase_config4(torch, dev, canonical,
+                                                 lives[1], wf)
+    stamp("config 4")
 
     tdist = float(canonical.max())
     hyper = dict(
@@ -571,8 +965,7 @@ def main() -> int:
         use_kernels=True, vert_cap=1 << 15, face_cap=1 << 16,
         live_vert_cap=1 << 17, live_face_cap=1 << 18,
     )
-    lw = torch.tensor([1, 0, 0, 0, 0, 0.1, 0, 0], dtype=torch.float32,
-                      device=dev)
+    lw = torch.tensor(LW_REF, dtype=torch.float32, device=dev)
     state = (canonical, torch.zeros_like(canonical), wf, lw, None)
 
     mc_case_cross.launches = 0
@@ -587,6 +980,8 @@ def main() -> int:
         times.append(ms)
     launches = (mc_case_cross.launches, warp_trilerp_bricks_cached.launches)
     check(all(n > 0 for n in launches), f"kernel launches {launches}")
+    total["mc_case_cross"] += launches[0]
+    total["warp_trilerp_bricks_cached"] += launches[1]
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     print(f"# timed frames (ms): {times}; median {np.median(times):.1f}; "
           f"peak device memory {peak_gb:.2f} GiB; launches K1 "
@@ -601,29 +996,37 @@ def main() -> int:
     check(dev99 < GATE_DEV_P999, f"kernel arm deviates: p99.9 {dev99}")
     del canonical, lives, wf, state, prev, plain_state
     torch.cuda.empty_cache()
+    stamp("bench frames")
 
     verts, faces, depths, lws = config6_views(torch, dev)
-    k5 = phase_k5(torch, dev, depths, lws)
-    k5_launches = phase_config6(torch, dev, verts, faces, depths, lws)[0]
+    rows["fuse_depth_multi"] = phase_k5(torch, dev, depths, lws)
+    k5_n, k1_n = phase_config6(torch, dev, verts, faces, depths, lws)
+    total["fuse_depth_multi"] += k5_n
+    total["mc_case_cross"] += k1_n
     phase_icp(torch, dev, depths, lws)
+    stamp("K5, config 6, ICP branch")
+    for name, n in phase_config7(torch, dev, verts, faces, depths,
+                                 lws).items():
+        total[name] += n
+    stamp("config 7")
 
     pkg = "dynamicfusion_body_tpu"
+    meta = {
+        "mc_case_cross": ("mc_case_cross.cu", "ops/mc_pallas.py:98"),
+        "warp_trilerp_bricks_cached": ("warp_trilerp_cached.cu",
+                                       "ops/trilerp_pallas.py:656"),
+        "warp_trilerp_bricks": ("warp_trilerp_bricks.cu",
+                                "ops/trilerp_pallas.py:742"),
+        "trilerp_bricks": ("trilerp_bricks.cu", "ops/trilerp_pallas.py:227"),
+        "fuse_depth_multi": ("fuse_depth_multi.cu",
+                             "ops/fusion_pallas.py:223"),
+    }
     table = {"kernels": [
-        dict(name="mc_case_cross", route="cuda",
-             source=f"{pkg}_torch/csrc/mc_case_cross.cu",
-             replaces=f"{pkg}/ops/mc_pallas.py:98", launches=launches[0],
-             **k1),
-        dict(name="warp_trilerp_bricks_cached", route="cuda",
-             source=f"{pkg}_torch/csrc/warp_trilerp_cached.cu",
-             replaces=f"{pkg}/ops/trilerp_pallas.py:656",
-             launches=launches[1], **k2),
-        dict(name="fuse_depth_multi", route="cuda",
-             source=f"{pkg}_torch/csrc/fuse_depth_multi.cu",
-             replaces=f"{pkg}/ops/fusion_pallas.py:223",
-             launches=k5_launches, **k5),
-    ]}
-    print(smi)
+        dict(name=name, route="cuda", source=f"{pkg}_torch/csrc/{src}",
+             replaces=f"{pkg}/{tpu}", launches=total[name], **rows[name])
+        for name, (src, tpu) in meta.items()]}
     print(json.dumps(table))
+    print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

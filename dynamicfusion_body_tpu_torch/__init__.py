@@ -18,3 +18,6 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 __version__ = "0.1.0"
+
+from .io.sdf_io import load_sdf  # noqa: E402,F401
+from .pipeline.fusion import Fusion, FusionDM, FusionDM_GPU  # noqa: E402,F401

@@ -4,12 +4,16 @@
   fusion-dm   ← TEST_FUSION_DM / TEST_FUSION_DM_GPU: fuse <data>/*.npy depth
                 maps with proj*.txt extrinsics into a canonical TSDF; write
                 the world-space mesh.
+  sequence    ← TEST_FUSION: the non-rigid loop over a directory of
+                *.dist volumes with per-frame phase profiles.
+  dummy       ← TEST_FUSION_DUMMY: synthetic ellipsoid smoke frame.
   backproject ← TEST_CUSTOM: dump depth-map backprojections as point files.
   selftest    ← TEST_UTIL: DQ/trilerp numeric checks, asserted.
 
-``fusion-dm`` and ``selftest`` run on the card unless ``--device cpu`` is
-given. ``sequence`` and ``dummy`` need the non-rigid ``Fusion`` class,
-which is not ported yet; asking for them exits with a message.
+``fusion-dm``, ``sequence``, ``dummy`` and ``selftest`` run on the card
+unless ``--device cpu`` is given. Correspondences are closest points
+only: ``sequence --method cnn`` / ``--cnn`` raise (ROADMAP Queue 1 item
+15).
 
 Run: python -m dynamicfusion_body_tpu_torch.cli <subcommand> [options]
 """
@@ -21,9 +25,6 @@ import os
 import sys
 
 import numpy as np
-
-_NOT_PORTED = ("sequence", "dummy")
-
 
 def _load_depth_dir(data_path, K):
     """Depth .npy + proj*.txt pairing as in test.py:143-156 (extrinsic =
@@ -60,6 +61,83 @@ def cmd_fusion_dm(args):
         depths, lws, UseAutoAlignment=cfg.use_auto_alignment,
         useICP=cfg.use_icp, outputMesh=False, as_numpy=False,
     )
+    fus.write_canonical_mesh(args.out_dir, args.out)
+    print("wrote", os.path.join(args.out_dir, args.out))
+
+
+def cmd_sequence(args):
+    from .io.sdf_io import load_sdf
+    from .pipeline.fusion import Fusion
+    from .utils.profiling import PhaseTimer
+
+    files = sorted(
+        f for f in os.listdir(args.data) if f.endswith(args.suffix)
+    )
+    if not files:
+        print("no volumes found", file=sys.stderr)
+        return 1
+    _, _, vol0, _ = load_sdf(os.path.join(args.data, files[0]))
+    fus = Fusion(
+        vol0, float(vol0.max()), subsample_rate=args.subsample_rate,
+        knn=args.knn, marching_cubes_step_size=args.mc_step,
+        verbose=args.verbose, use_cnn=args.cnn,
+        warpfield_path=args.out_dir, vert_cap=args.vert_cap,
+        face_cap=args.face_cap, node_cap=args.node_cap, device=args.device,
+    )
+    fus.write_canonical_mesh(args.out_dir, "original.obj")
+    timer = PhaseTimer()
+    # like the reference harness, a failed or interrupted frame stops the
+    # loop but still writes the accumulated mesh (test.py:133-138); the
+    # exit code then says that the sequence did not finish
+    rc = 0
+    for i, fname in enumerate(files[1 : args.max_frames + 1], start=1):
+        try:
+            _, _, vol, _ = load_sdf(os.path.join(args.data, fname))
+            print(f"Processing iteration: {i} ({fname})")
+            with timer.phase("setupCorrespondences"):
+                fus.setupCorrespondences(vol, method=args.method)
+            with timer.phase("solve", sync=fus._warp.node_dq):
+                fus.solve(regularization_weight=args.reg_weight,
+                          method=args.method)
+            with timer.phase("updateTSDF", sync=fus.volume.values):
+                fus.updateTSDF()
+            with timer.phase("update_graph"):
+                fus.update_graph()
+        except ValueError as e:
+            print(str(e), file=sys.stderr)
+            rc = 1
+            break
+        except KeyboardInterrupt:
+            rc = 130
+            break
+    fus.write_canonical_mesh(args.out_dir, args.out)
+    timer.dump(os.path.join(args.out_dir, "profile.json"))
+    print(timer.report())
+    return rc
+
+
+def cmd_dummy(args):
+    from .pipeline.fusion import Fusion
+
+    a, b, c = 6, 10, 16
+    shape = (2 * a + 3, 2 * b + 3, 2 * c + 3)
+    g = [np.arange(s) - (s - 1) / 2.0 for s in shape]
+    x, y, z = np.meshgrid(*g, indexing="ij")
+    vol = ((x / a) ** 2 + (y / b) ** 2 + (z / c) ** 2 - 1).astype(np.float32)
+    vol2 = (((x - 0.8) / a) ** 2 + ((y - 0.5) / b) ** 2 + (z / c) ** 2
+            - 1).astype(np.float32)
+    fus = Fusion(
+        vol[:-1], float(vol.max()), marching_cubes_step_size=1,
+        subsample_rate=2, verbose=args.verbose, vert_cap=4096, face_cap=8192,
+        node_cap=128, warpfield_path=args.out_dir, device=args.device,
+    )
+    print("Solving for a test iteration")
+    fus.setupCorrespondences(vol2[:-1], method="clpts", tolerance=2.0)
+    fus.solve(method="clpts", tukey_data_weight=1, regularization_weight=10)
+    print("Updating TSDF...")
+    fus.updateTSDF()
+    print("Updating deformation graph...")
+    fus.update_graph()
     fus.write_canonical_mesh(args.out_dir, args.out)
     print("wrote", os.path.join(args.out_dir, args.out))
 
@@ -116,6 +194,8 @@ def cmd_selftest(args):
 
 
 def main(argv=None):
+    from .config import CapacityConfig
+
     p = argparse.ArgumentParser(prog="dynamicfusion_body_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
 
@@ -130,6 +210,35 @@ def main(argv=None):
     dm.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     dm.set_defaults(fn=cmd_fusion_dm)
 
+    sq = sub.add_parser("sequence", help="non-rigid .dist sequence loop")
+    sq.add_argument("--data", required=True)
+    sq.add_argument("--suffix", default="64.dist")
+    sq.add_argument("--max-frames", type=int, default=10)
+    sq.add_argument("--subsample-rate", type=float, default=1.5)
+    sq.add_argument("--knn", type=int, default=3)
+    sq.add_argument("--mc-step", type=int, default=2)
+    sq.add_argument("--method", default="clpts", choices=["clpts", "cnn"])
+    sq.add_argument("--cnn", action="store_true")
+    sq.add_argument("--reg-weight", type=float, default=0.5)
+    # mesh and node-pool capacities (config.CapacityConfig's defaults); the
+    # solver's tables and the correspondence search scale with them
+    caps = CapacityConfig()
+    sq.add_argument("--vert-cap", type=int, default=caps.vert_cap)
+    sq.add_argument("--face-cap", type=int, default=caps.face_cap)
+    sq.add_argument("--node-cap", type=int, default=caps.node_cap)
+    sq.add_argument("--out", default="mesh.obj")
+    sq.add_argument("--out-dir", default=".")
+    sq.add_argument("--verbose", action="store_true")
+    sq.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    sq.set_defaults(fn=cmd_sequence)
+
+    du = sub.add_parser("dummy", help="ellipsoid smoke frame")
+    du.add_argument("--out", default="mesh.obj")
+    du.add_argument("--out-dir", default=".")
+    du.add_argument("--verbose", action="store_true")
+    du.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    du.set_defaults(fn=cmd_dummy)
+
     bp = sub.add_parser("backproject", help="depth backprojection dump")
     bp.add_argument("--data", required=True)
     bp.add_argument("--out-dir", default=".")
@@ -139,13 +248,7 @@ def main(argv=None):
     st.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     st.set_defaults(fn=cmd_selftest)
 
-    for name in _NOT_PORTED:
-        sub.add_parser(name, help="not ported yet (needs the Fusion class)")
-
     args = p.parse_args(argv)
-    if args.cmd in _NOT_PORTED:
-        p.error(f"'{args.cmd}' needs the non-rigid Fusion class, which is "
-                "not ported yet; use dynamicfusion_body_tpu.cli")
     return args.fn(args) or 0
 
 

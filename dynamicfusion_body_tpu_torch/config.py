@@ -1,7 +1,8 @@
 """Typed configuration of the multi-view fusion pipeline — a copy of the
 part of ``dynamicfusion_body_tpu/config.py`` that ``FusionDM`` and the CLI
 use (the JAX package's ``__init__`` imports jax, so it is copied, not
-imported). ``FusionConfig`` follows with the ``Fusion`` class.
+imported). The JAX ``FusionConfig`` is not copied: neither the CLI nor
+``Fusion`` reads it.
 
 Dataclasses that serialize to/from JSON and drive the CLI, in place of the
 reference's constructor kwargs and in-source harness booleans (SURVEY

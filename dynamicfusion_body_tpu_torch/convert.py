@@ -1,8 +1,9 @@
 """Carry state between the JAX package and the port as numpy arrays.
 
-The JAX package's ``WarpField``, canonical-mesh dict and ``TsdfVolume``,
-taken out as dicts of numpy arrays (``{name: np.asarray(value)}``), become
-the port's tensors here, so both packages can compute from one state.
+The JAX package's ``WarpField``, canonical-mesh dict, ``TsdfVolume`` and
+``Fusion`` driver state, taken out as dicts of numpy arrays
+(``{name: np.asarray(value)}``), become the port's tensors here, so both
+packages can compute from one state.
 Index arrays become int64, masks bool; the packed warp-selection slots
 stay int32, as the K2 kernel reads them. The tensors go to the card
 unless the caller asks for another device.
@@ -72,3 +73,21 @@ def tsdf_volume_from_jax(np_dict, device="cuda") -> TsdfVolume:
         weights=_t(np_dict["weights"], torch.float32, device),
         ind=_t(np_dict["ind"], torch.float32, device),
     )
+
+
+def load_fusion_state(fus, np_state) -> None:
+    """Set a port ``Fusion``'s state from a JAX ``Fusion``'s as numpy
+    arrays, on the port driver's device: ``values`` and ``weights`` (the
+    canonical TSDF), ``warp`` (the WarpField's fields), ``lw``, ``mesh``
+    (the canonical-mesh dict), ``nbr_idx`` and ``blend_wts``. The update
+    caches are dropped (they are rebuilt from the new node set)."""
+    dev = fus.device
+    fus.volume = fus.volume.replace(
+        values=_t(np_state["values"], torch.float32, dev),
+        weights=_t(np_state["weights"], torch.float32, dev))
+    fus._warp = warp_field_from_jax(np_state["warp"], device=dev)
+    fus._lw = _t(np_state["lw"], torch.float32, dev)
+    fus._mesh = mesh_from_jax(np_state["mesh"], device=dev)
+    fus._nbr_idx = _t(np_state["nbr_idx"], torch.int64, dev)
+    fus._blend_wts = _t(np_state["blend_wts"], torch.float32, dev)
+    fus._upd_cache = None

@@ -15,7 +15,8 @@ Per-voxel kNN is two-level, as in the JAX package: an exact kNN per 8³
 brick over the node pool gives C candidates, then an exact top-k per voxel
 among them. The per-voxel selection depends only on the node positions,
 so it is cached (``build_warp_cache``) and the per-frame work is the
-blend, warp and trilerp of the K2 kernel (``ops/trilerp_cuda.py``).
+blend, warp and trilerp of the K2 kernel (``ops/trilerp_cuda.py``); an
+update called without the cache selects per voxel inside the K3 kernel.
 
 Compaction that the JAX package does by binary search over a cumsum
 (``_compact_map``) is ``nonzero`` here, which keeps index order.
@@ -36,6 +37,7 @@ from ..ops.sampling import radius_subsample
 from ..ops.trilerp_cuda import (
     live_brick_mip,
     mip_skip_supported,
+    warp_trilerp_bricks,
     warp_trilerp_bricks_cached,
     warp_voxels,
 )
@@ -297,66 +299,61 @@ def update_tsdf_nonrigid(
 ):
     """Non-rigid canonical TSDF fusion (reference core/fusion.py:153-198).
 
-    Per voxel: cached kNN selection → DQB blend → sandwich warp (+ global
-    lw) → trilerp of the live TSDF → running average with wi = mean node
-    distance and the wi_t == 0 → wi substitution; a sample updates only
-    when it lies inside the live volume and is strictly above -tdist.
+    Per voxel: kNN selection among the brick's candidate nodes → DQB blend
+    → sandwich warp (+ global lw) → trilerp of the live TSDF → running
+    average with wi = mean node distance and the wi_t == 0 → wi
+    substitution; a sample updates only when it lies inside the live
+    volume and is strictly above -tdist. ``values``/``weights`` are the
+    canonical lattice (extents multiples of ``brick``); ``live`` may be
+    smaller (``Fusion.updateTSDF`` pads the canonical volume only): the
+    in-volume test and the taps use the live volume's own shape.
 
     Returns (values, weights, esc_dropped, pool_risk); esc_dropped is
     always 0 (kept for the JAX signature).
 
-    ``use_kernels`` (the JAX ``use_pallas``) samples through the K2
-    wrapper: the kernel on CUDA tensors, its twin on CPU ones. Samples
-    within tdist/64 of the -tdist threshold (other than exact hits, the
-    certified constants) are then re-sampled by the exact gather — up to
-    ESC_CAP of them, else the whole volume is — so the strict inclusion
-    test always sees the exact value. Without ``use_kernels`` every
-    sample takes the exact gather.
+    ``use_kernels`` (the JAX ``use_pallas``) samples through the kernels —
+    on CUDA tensors the kernels, on CPU ones their twins: K2 with a
+    ``warp_cache`` (with the mip certificate when the live volume has the
+    canonical shape and ``mip_skip_supported`` holds), K3 without one (the
+    selection, its weights and ``wi`` computed per voxel in the kernel).
+    Without ``use_kernels`` the selection comes from ``warp_cache`` (built
+    here when None). Both arms interpolate in f32 with ``_trilinear_c``'s
+    formula, so the JAX update's near-threshold re-sample (after its
+    kernels' bf16 interpolation) has no counterpart.
 
-    Without ``cand_cache`` the two-level brick candidates and their risk
-    count are searched here. Without ``warp_cache`` the cache is built
-    here: the JAX package's uncached per-voxel top-k (its K3 kernel)
-    computes the same selection. The JAX arguments ``exact_candidates``
-    (no caller passes it with a cache) and ``x_offset`` (sharding) wait
-    for the drivers and the ``parallel/`` port.
+    Without ``cand_cache`` the brick candidates and their risk count are
+    searched here (two-level). The JAX arguments ``exact_candidates`` (no
+    caller passes it to the update) and ``x_offset`` (sharding, waits for
+    the ``parallel/`` port) are not ported.
     """
-    rx, ry, rz = values.shape
-    NB = (rx // brick) * (ry // brick) * (rz // brick)
+    vol_shape = tuple(values.shape)
     if cand_cache is not None:
         cand, pool_risk = cand_cache
     else:
         cand, pool_risk = brick_candidates_2level(
-            wf, values.shape, brick, n_candidates, with_risk=True, risk_k=k)
-    if warp_cache is None:
-        warp_cache = build_warp_cache(wf, values.shape, cand, k, brick)
-    sel, selw, wi = warp_cache
+            wf, vol_shape, brick, n_candidates, with_risk=True, risk_k=k)
 
     if use_kernels:
-        if tuple(live.shape) != tuple(values.shape):
-            raise ValueError("use_kernels needs live on the canonical lattice")
-        mip_ok = mip_skip_supported(live.shape)
-        tsdf_l, valid, wx, wy, wz = warp_trilerp_bricks_cached(
-            live, wf.node_dq, cand, sel, selw, lw_dq, brick=brick,
-            tdist=float(tdist) if mip_ok else None,
-            live_mip=live_brick_mip(live) if mip_ok else None,
-        )
-        near = (valid & (torch.abs(tsdf_l + tdist) <= tdist / 64.0)
-                & (tsdf_l != -tdist))
-        n_esc = int(torch.sum(near))
-        ESC_CAP = 1 << 16
-        if n_esc > ESC_CAP:
-            tsdf_l, valid = _trilinear_c(live, wx, wy, wz)
-        elif n_esc > 0:
-            src = torch.nonzero(near.reshape(-1)).flatten()
-            t_fix, v_fix = _trilinear_c(live, wx.reshape(-1)[src],
-                                        wy.reshape(-1)[src],
-                                        wz.reshape(-1)[src])
-            tsdf_l = tsdf_l.reshape(-1).index_put((src,), t_fix).reshape(
-                NB, -1)
-            valid = valid.reshape(-1).index_put((src,), v_fix).reshape(NB, -1)
+        if warp_cache is None:
+            tsdf_l, valid, wi, _, _, _ = warp_trilerp_bricks(
+                live, wf.node_pos, wf.node_w, wf.active, wf.node_dq, cand,
+                lw_dq, vol_shape=vol_shape, brick=brick, k=k)
+        else:
+            sel, selw, wi = warp_cache
+            mip_ok = (mip_skip_supported(live.shape)
+                      and tuple(live.shape) == vol_shape)
+            tsdf_l, valid, _, _, _ = warp_trilerp_bricks_cached(
+                live, wf.node_dq, cand, sel, selw, lw_dq, brick=brick,
+                tdist=float(tdist) if mip_ok else None,
+                live_mip=live_brick_mip(live) if mip_ok else None,
+                vol_shape=vol_shape,
+            )
     else:
+        if warp_cache is None:
+            warp_cache = build_warp_cache(wf, vol_shape, cand, k, brick)
+        sel, selw, wi = warp_cache
         wx, wy, wz = warp_voxels(wf.node_dq, cand, sel, selw, lw_dq,
-                                 values.shape, brick)
+                                 vol_shape, brick)
         tsdf_l, valid = _trilinear_c(live, wx, wy, wz)
 
     vals = vol_to_bricks(values, brick)

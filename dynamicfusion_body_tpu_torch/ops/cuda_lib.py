@@ -42,12 +42,24 @@ SIGNATURES = {
     # (vol, out, X, Y, Z, level, stream)
     "dfb_mc_case_cross": (_P, _P, _I, _I, _I, _F, _P),
     # (live, node_dq, cand, sel, selw, lw, mip_mn, mip_mx, use_mip,
-    #  tdist, rx, ry, rz, brick, NB, C, k,
+    #  tdist, rx, ry, rz, vy, vz, brick, NB, C, k,
     #  vals, valid, wx, wy, wz, stream)
     "dfb_warp_trilerp_cached": (
         _P, _P, _P, _P, _P, _P, _P, _P, _I,
-        _F, _I, _I, _I, _I, _I, _I, _I,
+        _F, _I, _I, _I, _I, _I, _I, _I, _I, _I,
         _P, _P, _P, _P, _P, _P,
+    ),
+    # (live, node_pos, node_w, active, node_dq, cand, lw,
+    #  rx, ry, rz, vy, vz, brick, NB, C, k,
+    #  vals, valid, wi, wx, wy, wz, stream)
+    "dfb_warp_trilerp_bricks": (
+        _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _I, _I, _I, _I, _I,
+        _P, _P, _P, _P, _P, _P, _P,
+    ),
+    # (live, wx, wy, wz, n, rx, ry, rz, vals, valid, stream)
+    "dfb_trilerp_bricks": (
+        _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _P, _P, _P,
     ),
     # (vals, wts, depths, projs, kinv_row2, n_views, h, w, X, Y, Z,
     #  tdist, wmax, vals_out, wts_out, stream)

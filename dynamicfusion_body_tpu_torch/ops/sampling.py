@@ -26,21 +26,24 @@ def radius_subsample(points, radius, capacity: int, valid=None):
     (invalid points are never selected and never suppress others).
     Returns (indices (capacity,) int64, count 0-d int64); slots >= count
     hold index 0."""
-    n = points.shape[0]
     dev = points.device
     out = torch.zeros(capacity, dtype=torch.long, device=dev)
+    # invalid points start committed and unselected, so they neither
+    # suppress nor block anyone: the loop runs over the valid ones only
+    # (in index order), and the picks map back through ``keep``
+    keep = (torch.arange(points.shape[0], device=dev) if valid is None
+            else torch.nonzero(valid).flatten())
+    n = keep.numel()
     if n == 0:
         return out, torch.zeros((), dtype=torch.long, device=dev)
-    if valid is None:
-        valid = torch.ones(n, dtype=torch.bool, device=dev)
     r = torch.as_tensor(radius, dtype=torch.float32, device=dev)
     r2 = r * r
-    pts = points.float()
+    pts = points[keep].float()
     pp = torch.sum(pts * pts, dim=-1)
     chunk = max(128, min(2048, (1 << 26) // n))
     gidx = torch.arange(n, device=dev)
 
-    committed = ~valid
+    committed = torch.zeros(n, dtype=torch.bool, device=dev)
     selected = torch.zeros(n, dtype=torch.bool, device=dev)
     rounds = 0
     while rounds < n and not bool(torch.all(committed)):
@@ -60,6 +63,6 @@ def radius_subsample(points, radius, capacity: int, valid=None):
         committed = committed | new_sel | new_rej
         rounds += 1
 
-    chosen = torch.nonzero(selected).flatten()[:capacity]
+    chosen = keep[torch.nonzero(selected).flatten()[:capacity]]
     out[: chosen.numel()] = chosen
     return out, torch.tensor(chosen.numel(), device=dev)

@@ -1,23 +1,40 @@
-"""K2 — cached warp + live trilerp per 8³ brick (``csrc/warp_trilerp_cached.cu``).
+"""The live-TSDF sampling kernels of the non-rigid update, counterparts of
+``dynamicfusion_body_tpu/ops/trilerp_pallas.py``:
 
-Counterpart of ``dynamicfusion_body_tpu/ops/trilerp_pallas.py:
-warp_trilerp_bricks_cached`` and its helpers ``live_brick_mip`` and
-``mip_skip_supported``. Per canonical brick: blend the node DQs of the
-cached per-voxel top-k selection (``models/warp_field.py:
-build_warp_cache``), normalize, warp every voxel centre and apply the
-global pose; then sample the live TSDF at the warped positions, except
-where the live-space mip certificate proves the brick's samples constant
-(see :func:`mip_short_bricks`).
+* K2 ``warp_trilerp_bricks_cached`` (``csrc/warp_trilerp_cached.cu``), with
+  its helpers ``live_brick_mip`` and ``mip_skip_supported``: per canonical
+  brick, blend the node DQs of the cached per-voxel top-k selection
+  (``models/warp_field.py:build_warp_cache``), normalize, warp every voxel
+  centre and apply the global pose; then sample the live TSDF at the warped
+  positions, except where the live-space mip certificate proves the
+  brick's samples constant (see :func:`mip_short_bricks`);
+* K3 ``warp_trilerp_bricks`` (``csrc/warp_trilerp_bricks.cu``): the same
+  without a cache — the per-voxel top-k among the brick's candidates, its
+  Gaussian weights and ``wi`` are computed in the kernel; no mip
+  certificate;
+* K4 ``trilerp_bricks`` (``csrc/trilerp_bricks.cu``): the trilerp alone,
+  at given coordinates.
 
-What the TPU mechanisms become here:
+All three share one device trilerp (``csrc/trilerp.cuh``), the formula of
+``ops/interp.py:trilinear_c`` (the JAX package's ``_trilinear_c``). What
+the TPU mechanisms become here:
 * the (16, 24, Z) VMEM staging box and its escape output are gone: the
-  kernel reads taps straight from global memory, so no sample escapes and
+  kernels read taps straight from global memory, so no sample escapes and
   ``valid`` is exactly "inside the live volume";
-* the bf16 hi/lo MXU contraction becomes the plain f32 formula of
-  ``_trilinear_c`` (the caller's near-threshold re-sample stays, see
+* the bf16 hi/lo MXU contraction becomes the plain f32 formula (the
+  caller's near-threshold re-sample stays, see
   ``models/warp_field.py:update_tsdf_nonrigid``);
-* the packed (M, 16) node table becomes the (M, 8) node DQ array — the
-  cached kernel reads only the DQ columns.
+* the packed (M, 16) node table becomes the WarpField's own arrays: K2
+  reads the (M, 8) node DQs, K3 also the positions, supports and active
+  flags;
+* the ``group``, ``precise``, ``interpret`` and ``x_offset`` arguments
+  have no counterpart (no shared DMA box, one f32 path, no interpreter;
+  the sharded path waits for ``parallel/``).
+
+The canonical lattice ``vol_shape`` (which the caller may pad up to a
+multiple of the brick) sets the brick grid and the voxel centres; the
+live volume's own shape sets the in-volume test and the tap clamps, as in
+the JAX kernels and ``_trilinear_c``.
 """
 
 from __future__ import annotations
@@ -139,10 +156,12 @@ def mip_short_bricks(wx, wy, wz, invol, shape, tdist: float, live_mip):
 
 
 def warp_trilerp_bricks_cached_ref(live, node_dq, cand, sel, selw, lw_dq,
-                                   brick: int = 8, tdist=None, live_mip=None):
-    """Plain PyTorch twin of the kernel: (vals, valid, wx, wy, wz), each
-    (NB, V); valid is bool."""
-    wx, wy, wz = warp_voxels(node_dq, cand, sel, selw, lw_dq, live.shape,
+                                   brick: int = 8, tdist=None, live_mip=None,
+                                   vol_shape=None):
+    """Plain PyTorch twin of K2: (vals, valid, wx, wy, wz), each (NB, V);
+    valid is bool."""
+    vol_shape = tuple(live.shape) if vol_shape is None else tuple(vol_shape)
+    wx, wy, wz = warp_voxels(node_dq, cand, sel, selw, lw_dq, vol_shape,
                              brick)
     vals, valid = trilinear_c(live, wx, wy, wz)
     if tdist is not None and live_mip is not None:
@@ -152,22 +171,46 @@ def warp_trilerp_bricks_cached_ref(live, node_dq, cand, sel, selw, lw_dq,
     return vals, valid, wx, wy, wz
 
 
-def warp_trilerp_bricks_cached(live, node_dq, cand, sel, selw, lw_dq,
-                               brick: int = 8, tdist=None, live_mip=None):
-    """Fused per-frame sample stage of the non-rigid TSDF update.
+def _check_lattice(name, live, vol_shape, brick, NB):
+    """The brick grid of ``vol_shape`` must hold NB bricks of one CTA each;
+    returns vol_shape as a tuple."""
+    vol_shape = tuple(live.shape) if vol_shape is None else tuple(vol_shape)
+    if len(vol_shape) != 3 or live.dim() != 3:
+        raise ValueError(f"{name}: live and vol_shape must be 3-D")
+    vx, vy, vz = vol_shape
+    if (vx % brick or vy % brick or vz % brick
+            or NB != (vx // brick) * (vy // brick) * (vz // brick)):
+        raise ValueError(f"{name}: brick grid of vol_shape {vol_shape} does "
+                         f"not match NB={NB}")
+    if brick ** 3 > 1024:
+        raise ValueError(f"{name}: brick={brick} exceeds 1024 threads")
+    return vol_shape
 
-    live (R³) f32 — the brick grid is ``live.shape // brick``, which must
-    be the canonical volume's; node_dq (M, 8) f32; cand (NB, C) node ids;
-    sel (NB, V) int32 packed slots and selw (NB, k, V) f32 from
-    ``build_warp_cache``; lw_dq (8,) f32. With ``tdist`` and ``live_mip``
-    (from :func:`live_brick_mip`) certified bricks emit exact constants.
-    Returns (vals, valid, wx, wy, wz), each (NB, V).
+
+def _check_cand(name, cand, M):
+    if cand.numel() and (int(cand.min()) < 0 or int(cand.max()) >= M):
+        raise ValueError(f"{name}: cand holds node ids outside the node pool")
+
+
+def warp_trilerp_bricks_cached(live, node_dq, cand, sel, selw, lw_dq,
+                               brick: int = 8, tdist=None, live_mip=None,
+                               vol_shape=None):
+    """K2: fused per-frame sample stage of the non-rigid TSDF update.
+
+    live (rx, ry, rz) f32; ``vol_shape`` the canonical lattice (default
+    ``live.shape``), whose ``vol_shape // brick`` grid holds the NB bricks;
+    node_dq (M, 8) f32; cand (NB, C) node ids; sel (NB, V) int32 packed
+    slots and selw (NB, k, V) f32 from ``build_warp_cache``; lw_dq (8,)
+    f32. With ``tdist`` and ``live_mip`` (from :func:`live_brick_mip`)
+    certified bricks emit exact constants; that needs ``vol_shape`` equal
+    to ``live.shape``. Returns (vals, valid, wx, wy, wz), each (NB, V).
 
     A CPU tensor takes the plain twin; a CUDA tensor launches the kernel
     or raises."""
     if live.device.type == "cpu":
         return warp_trilerp_bricks_cached_ref(
-            live, node_dq, cand, sel, selw, lw_dq, brick, tdist, live_mip)
+            live, node_dq, cand, sel, selw, lw_dq, brick, tdist, live_mip,
+            vol_shape)
     if live.device.type != "cuda":
         raise ValueError(f"warp_trilerp_bricks_cached: device {live.device}")
     rx, ry, rz = live.shape
@@ -175,22 +218,22 @@ def warp_trilerp_bricks_cached(live, node_dq, cand, sel, selw, lw_dq,
     V = brick ** 3
     k = selw.shape[1]
     M = node_dq.shape[0]
-    if (rx % brick or ry % brick or rz % brick
-            or NB != (rx // brick) * (ry // brick) * (rz // brick)):
-        raise ValueError(f"brick grid of {live.shape} does not match NB={NB}")
-    if V > 1024 or C > 32 or not 1 <= k <= 6:
-        raise ValueError(f"unsupported brick={brick}, C={C}, k={k}")
+    vol_shape = _check_lattice("warp_trilerp_bricks_cached", live, vol_shape,
+                               brick, NB)
+    if C > 32 or not 1 <= k <= 6:
+        raise ValueError(f"unsupported C={C}, k={k}")
     if tuple(sel.shape) != (NB, V) or tuple(selw.shape) != (NB, k, V):
         raise ValueError(f"sel {tuple(sel.shape)} / selw {tuple(selw.shape)}"
                          f" do not match (NB={NB}, V={V})")
     if node_dq.shape != (M, 8) or lw_dq.shape != (8,):
         raise ValueError("node_dq must be (M, 8) and lw_dq (8,)")
-    if NB and (int(cand.min()) < 0 or int(cand.max()) >= M):
-        raise ValueError("cand holds node ids outside the node pool")
+    _check_cand("warp_trilerp_bricks_cached", cand, M)
     use_mip = tdist is not None and live_mip is not None
-    if use_mip and not (mip_skip_supported(live.shape) and V % 32 == 0):
+    if use_mip and not (mip_skip_supported(live.shape) and V % 32 == 0
+                        and vol_shape == tuple(live.shape)):
         raise ValueError(f"mip certificate needs mip_skip_supported "
-                         f"{live.shape} and whole warps (brick={brick})")
+                         f"{tuple(live.shape)}, vol_shape {vol_shape} equal "
+                         f"to it and whole warps (brick={brick})")
     dev = live.device
     f32 = torch.float32
     live_c = live.to(f32).contiguous()
@@ -210,7 +253,8 @@ def warp_trilerp_bricks_cached(live, node_dq, cand, sel, selw, lw_dq,
         live_c.data_ptr(), dq_c.data_ptr(), cand_c.data_ptr(),
         sel_c.data_ptr(), selw_c.data_ptr(), lw_c.data_ptr(),
         mn.data_ptr(), mx.data_ptr(), int(use_mip),
-        float(tdist) if use_mip else 0.0, rx, ry, rz, brick, NB, C, k,
+        float(tdist) if use_mip else 0.0, rx, ry, rz, vol_shape[1],
+        vol_shape[2], brick, NB, C, k,
         vals.data_ptr(), valid.data_ptr(), wx.data_ptr(), wy.data_ptr(),
         wz.data_ptr(), cuda_lib.stream_ptr(dev),
     )
@@ -220,3 +264,132 @@ def warp_trilerp_bricks_cached(live, node_dq, cand, sel, selw, lw_dq,
 
 
 warp_trilerp_bricks_cached.launches = 0
+
+
+def warp_trilerp_bricks_ref(live, node_pos, node_w, active, node_dq, cand,
+                            lw_dq, vol_shape=None, brick: int = 8, k: int = 3):
+    """Plain PyTorch twin of K3: ``build_warp_cache``'s selection (k argmin
+    passes, first-min tie-break; needs C <= 32, k <= 6) followed by K2's
+    twin without the mip certificate. Returns (vals, valid, wi, wx, wy,
+    wz), each (NB, V)."""
+    # models/ imports this module; the selection lives there
+    from ..models.warp_field import WarpField, build_warp_cache
+
+    vol_shape = tuple(live.shape) if vol_shape is None else tuple(vol_shape)
+    wf = WarpField(node_pos=node_pos, node_dq=node_dq, node_w=node_w,
+                   node_vert_idx=torch.zeros_like(node_w, dtype=torch.long),
+                   active=active, radius=node_w.new_zeros(()))
+    sel, selw, wi = build_warp_cache(wf, vol_shape, cand, k, brick)
+    vals, valid, wx, wy, wz = warp_trilerp_bricks_cached_ref(
+        live, node_dq, cand, sel, selw, lw_dq, brick, vol_shape=vol_shape)
+    return vals, valid, wi, wx, wy, wz
+
+
+def warp_trilerp_bricks(live, node_pos, node_w, active, node_dq, cand,
+                        lw_dq, vol_shape=None, brick: int = 8, k: int = 3):
+    """K3: the sample stage of the non-rigid TSDF update without a warp
+    cache — per voxel, the exact top-k of the brick's C candidate nodes
+    (first-min tie-break), Gaussian weights, ``wi`` (mean distance), DQB
+    blend in selection order, normalize, warp, global pose, live trilerp.
+
+    live (rx, ry, rz) f32; ``vol_shape`` the canonical lattice (default
+    ``live.shape``); node_pos (M, 3), node_w (M,), active (M,) bool and
+    node_dq (M, 8): the WarpField's arrays; cand (NB, C) node ids, C <= 32;
+    lw_dq (8,); 1 <= k <= C. Returns (vals, valid, wi, wx, wy, wz), each
+    (NB, V); valid (bool) is "inside the live volume" — the JAX kernel's
+    escape output has no counterpart.
+
+    A CPU tensor takes the plain twin; a CUDA tensor launches the kernel
+    or raises."""
+    if live.device.type == "cpu":
+        return warp_trilerp_bricks_ref(live, node_pos, node_w, active,
+                                       node_dq, cand, lw_dq, vol_shape,
+                                       brick, k)
+    if live.device.type != "cuda":
+        raise ValueError(f"warp_trilerp_bricks: device {live.device}")
+    rx, ry, rz = live.shape
+    NB, C = cand.shape
+    V = brick ** 3
+    M = node_dq.shape[0]
+    vol_shape = _check_lattice("warp_trilerp_bricks", live, vol_shape, brick,
+                               NB)
+    if not 1 <= C <= 32 or not 1 <= k <= C:
+        raise ValueError(f"warp_trilerp_bricks: unsupported C={C}, k={k}")
+    if (tuple(node_pos.shape) != (M, 3) or tuple(node_w.shape) != (M,)
+            or tuple(active.shape) != (M,) or tuple(node_dq.shape) != (M, 8)
+            or tuple(lw_dq.shape) != (8,)):
+        raise ValueError("warp_trilerp_bricks: node arrays must be (M, 3), "
+                         "(M,), (M,), (M, 8) and lw_dq (8,)")
+    _check_cand("warp_trilerp_bricks", cand, M)
+    dev = live.device
+    f32 = torch.float32
+    ins = [live.to(f32).contiguous(), node_pos.to(f32).contiguous(),
+           node_w.to(f32).contiguous(), active.to(torch.uint8).contiguous(),
+           node_dq.to(f32).contiguous(), cand.to(torch.int32).contiguous(),
+           lw_dq.to(f32).contiguous()]
+    vals, wi, wx, wy, wz = (torch.empty((NB, V), dtype=f32, device=dev)
+                            for _ in range(5))
+    valid = torch.empty((NB, V), dtype=torch.bool, device=dev)
+    err = cuda_lib.lib().dfb_warp_trilerp_bricks(
+        *(t.data_ptr() for t in ins), rx, ry, rz, vol_shape[1], vol_shape[2],
+        brick, NB, C, k, vals.data_ptr(), valid.data_ptr(), wi.data_ptr(),
+        wx.data_ptr(), wy.data_ptr(), wz.data_ptr(), cuda_lib.stream_ptr(dev),
+    )
+    cuda_lib.check("warp_trilerp_bricks", err)
+    warp_trilerp_bricks.launches += 1
+    return vals, valid, wi, wx, wy, wz
+
+
+warp_trilerp_bricks.launches = 0
+
+
+def trilerp_bricks_supported(shape, brick: int = 8) -> bool:
+    """Every 3-D live volume the kernel takes: it reads taps from global
+    memory, so the TPU kernel's box and lane-tiling gates have no
+    counterpart (``brick`` is accepted for the JAX signature)."""
+    return len(shape) == 3 and all(int(s) >= 1 for s in shape)
+
+
+def trilerp_bricks_ref(live, wx, wy, wz):
+    """Plain PyTorch twin of K4: (vals, valid, escaped); escaped is all
+    False."""
+    vals, valid = trilinear_c(live, wx, wy, wz)
+    return vals, valid, torch.zeros_like(valid)
+
+
+def trilerp_bricks(live, wx, wy, wz):
+    """K4: sample ``live`` (rx, ry, rz) at the coordinates wx/wy/wz (any one
+    shape, e.g. the (NB, V) brick rows). Returns (vals f32, valid bool,
+    escaped bool) of that shape; valid is "inside the live volume" and
+    escaped is all False (nothing is staged; it is kept so the JAX
+    signature returns the same triple). The JAX arguments ``group``,
+    ``precise`` and ``interpret`` have no counterpart.
+
+    A CPU tensor takes the plain twin; a CUDA tensor launches the kernel
+    or raises."""
+    if live.device.type == "cpu":
+        return trilerp_bricks_ref(live, wx, wy, wz)
+    if live.device.type != "cuda":
+        raise ValueError(f"trilerp_bricks: device {live.device}")
+    if not trilerp_bricks_supported(live.shape):
+        raise ValueError(f"trilerp_bricks: live {tuple(live.shape)} is not "
+                         "a 3-D volume")
+    if wx.shape != wy.shape or wx.shape != wz.shape:
+        raise ValueError("trilerp_bricks: wx, wy, wz differ in shape")
+    rx, ry, rz = live.shape
+    dev = live.device
+    f32 = torch.float32
+    coords = [w.to(f32).contiguous() for w in (wx, wy, wz)]
+    live_c = live.to(f32).contiguous()
+    vals = torch.empty(wx.shape, dtype=f32, device=dev)
+    valid = torch.empty(wx.shape, dtype=torch.bool, device=dev)
+    err = cuda_lib.lib().dfb_trilerp_bricks(
+        live_c.data_ptr(), *(c.data_ptr() for c in coords), wx.numel(),
+        rx, ry, rz, vals.data_ptr(), valid.data_ptr(),
+        cuda_lib.stream_ptr(dev))
+    cuda_lib.check("trilerp_bricks", err)
+    trilerp_bricks.launches += 1
+    return vals, valid, torch.zeros_like(valid)
+
+
+trilerp_bricks.launches = 0

@@ -186,7 +186,7 @@ def test_entry_points_default_to_the_card():
              "ind": np.eye(4, dtype=np.float32)})
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["selftest"])
-    with pytest.raises(SystemExit):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["dummy"])
     assert cli.main(["selftest", "--device", "cpu"]) == 0
 
