@@ -18,8 +18,13 @@ Phases, each of which raises on failure (exit code 1):
      its twin (wi exact, valid exact but at the volume's faces, coordinates
      and values within 1e-4) and against the warp cache + K2;
   4. K4 (trilerp_bricks) at K3's coordinates: bit-equal to its twin in the
-     volume; timed beside grid_sample. K4 is on no path of the system (as
-     in the JAX package), so its launch count on the paths is 0;
+     volume; timed beside grid_sample. K4's path is the profiling tools
+     (phase 12), as in the JAX package;
+  4b. K6 (trilerp_ablation) at the trilerp profiler's 256³ shapes (16.8 M
+     random samples): each mode at 256 threads bit-equal to its twin, and
+     the full mode bit-equal to K4's values; the SASS of every
+     instantiation keeps its global loads (the loads and full modes 8
+     more than the weights mode: the taps); timed beside the bounds;
   5. K2 and K3 on a 72³ canonical lattice over a 65³ live volume, and the
      update's kernel arm against its plain arm there;
   6. benchmarks/suite.py config 4: the non-rigid update at 256³ without
@@ -51,22 +56,36 @@ Phases, each of which raises on failure (exit code 1):
      reference mesh bent by 0.08, 0.16 and 0.24 rad, per frame a live
      TSDF fused on the canonical lattice and setupCorrespondences → solve
      → updateTSDF → update_graph; K1, K2 and K5 must have launched and the
-     final surface error must be below the untracked one.
+     final surface error must be below the untracked one;
+  12. the profiling entry points (dynamicfusion_body_tpu_torch/tools), in
+     process at 256³: profile_trilerp and profile_upd as a user runs them,
+     profile_mc, profile_solve and profile_frame with --reps 3 and --trace
+     (into a temporary directory); their lines go out as '#' lines; K6
+     must have launched there.
 The last lines are the kernel table as JSON, the card, then
 ``{"ok": true, "device": {...}}``. No result is printed without a GPU.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 import numpy as np
 
+from dynamicfusion_body_tpu_torch.tools._timing import (
+    F32_OPS, HBM_BPS, bound, live_taps)
+
 ROOT = Path(__file__).resolve().parent
+PKG = "dynamicfusion_body_tpu"
 RES = 256
 K2_TOL_COORD = 1e-4  # voxels: a few f32 ulps at 256 (kernel vs twin)
 K2_TOL_VAL = 1e-4    # TSDF units: K2_TOL_COORD times |∇live| <= ~1
@@ -85,10 +104,6 @@ ICP_VIEWS = 3
 # flipped, and every other value within the JAX-vs-oracle tolerance
 K5_FLIP_MAX = 16
 K5_TOL_VAL = 2e-5
-# the card's peaks (H100 SXM data sheet, dense, at 700 W): HBM bytes/s and
-# f32 operations/s outside the tensor cores
-HBM_BPS = 3.35e12
-F32_OPS = 67e12
 # f32 operations per voxel of K2 (k = 3: blend 40, normalize 25, two
 # dual-quaternion sandwiches 352, bounds 6) and per trilerped voxel (40)
 K2_OPS_VOXEL, K2_OPS_TRILERP = 423, 40
@@ -128,15 +143,6 @@ def cuda_ms(torch, fn, reps=10):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def bound(nbytes, nops):
-    """The least time the card could take: the larger of the bytes over
-    the memory rate and the operations over the f32 rate."""
-    t_bytes = nbytes / HBM_BPS * 1e3
-    t_ops = nops / F32_OPS * 1e3
-    return dict(bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
 def phase_k1(torch, dev):
@@ -238,8 +244,7 @@ def phase_k2(torch, dev, lives, wf):
                     lambda: warp_trilerp_bricks_cached_ref(*args, **kw),
                     reps=3)
     n_full = int(torch.sum(~short))
-    n_taps = live_taps(torch, live.shape, [w[~short] for w in (r_wx, r_wy,
-                                                                 r_wz)])
+    n_taps = live_taps(live.shape, [w[~short] for w in (r_wx, r_wy, r_wz)])
     nb, v = sel.shape
     # live: only the cells the full bricks tap (short-circuited bricks read
     # none); the other inputs whole; outputs vals, wx, wy, wz, valid (1 B)
@@ -258,25 +263,6 @@ def phase_k2(torch, dev, lives, wf):
           f"({row['bound_by']}; {nbytes / 1e6:.1f} MB, {nops / 1e9:.3f} "
           f"G operations)")
     return row
-
-
-def live_taps(torch, shape, coords):
-    """The number of distinct cells of a live volume of ``shape`` that the
-    trilerp at ``coords`` (wx, wy, wz) reads: 8 clamped corners each, as
-    K2 and models/warp_field.py:_trilinear_c take them."""
-    rx, ry, rz = shape
-    lo, hi = [], []
-    for c, r in zip(coords, shape):
-        f = torch.floor(torch.clamp(c, 0.0, r - 1.0)).long()
-        lo.append(f)
-        hi.append(torch.clamp(f + 1, max=r - 1))
-    tapped = torch.zeros(rx * ry * rz, dtype=torch.bool,
-                         device=coords[0].device)
-    for ix in (lo[0], hi[0]):
-        for iy in (lo[1], hi[1]):
-            for iz in (lo[2], hi[2]):
-                tapped[(ix * ry + iy) * rz + iz] = True
-    return int(torch.sum(tapped))
 
 
 def phase_k3(torch, dev, live, wf):
@@ -341,7 +327,7 @@ def phase_k3(torch, dev, live, wf):
                     reps=3)
     nb, v = vals.shape
     C = cand.shape[1]
-    n_taps = live_taps(torch, live.shape, (wx, wy, wz))
+    n_taps = live_taps(live.shape, (wx, wy, wz))
     n_act = int(torch.sum(wf.active[cand]))  # active candidate slots
     M = wf.capacity
     nbytes = (4 * n_taps + M * (12 + 4 + 1 + 32) + 4 * cand.numel() + 32
@@ -366,24 +352,15 @@ def phase_k4(torch, live, coords):
     """K4 at K3's output coordinates on config 4's live volume: bit-equal
     to its twin on in-volume samples; timed beside the twin and beside
     grid_sample, the one PyTorch call computing the same trilerp."""
-    import torch.nn.functional as F
-
     from dynamicfusion_body_tpu_torch.ops.trilerp_cuda import (
         trilerp_bricks, trilerp_bricks_ref)
+    from dynamicfusion_body_tpu_torch.tools.profile_trilerp import (
+        grid_sample_fn)
 
     wx, wy, wz = coords
     vals, valid, esc = trilerp_bricks(live, wx, wy, wz)
     r_vals, r_valid, _ = trilerp_bricks_ref(live, wx, wy, wz)
-    rx, ry, rz = live.shape
-    grid = torch.stack([2.0 * wz / (rz - 1) - 1.0, 2.0 * wy / (ry - 1) - 1.0,
-                        2.0 * wx / (rx - 1) - 1.0], dim=-1)
-    grid = grid.reshape(1, wx.shape[0], wx.shape[1], 1, 3)
-    inp = live[None, None]
-
-    def library():
-        return F.grid_sample(inp, grid, mode="bilinear", padding_mode="zeros",
-                             align_corners=True)
-
+    library = grid_sample_fn(live, wx, wy, wz)
     lib_vals = library().reshape(wx.shape)
     torch.cuda.synchronize()
     check(torch.equal(valid, r_valid), "K4 valid differs from its twin")
@@ -399,7 +376,7 @@ def phase_k4(torch, live, coords):
                     reps=3)
     lib_ms = cuda_ms(torch, library)
     n = wx.numel()
-    n_taps = live_taps(torch, live.shape, coords)
+    n_taps = live_taps(live.shape, coords)
     nbytes = 12 * n + 4 * n_taps + 5 * n
     nops = n * (K2_OPS_TRILERP + 6)
     row = dict(max_abs_err=err, ms=ms, plain_ms=plain, **bound(nbytes, nops),
@@ -410,6 +387,172 @@ def phase_k4(torch, live, coords):
           f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}; "
           f"{nbytes / 1e6:.1f} MB, {nops / 1e9:.3f} G operations)")
     return row
+
+
+def sass_loads(torch):
+    """Global loads (LDG instructions) of each K6 instantiation in the
+    built library's SASS, by (mode, threads). The toolkit that builds the
+    kernels ships cuobjdump; a machine without it fails the check."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    from dynamicfusion_body_tpu_torch.ops import cuda_lib
+    from dynamicfusion_body_tpu_torch.ops.trilerp_cuda import ABLATION_MODES
+
+    tool = Path(CUDA_HOME or "/usr/local/cuda") / "bin" / "cuobjdump"
+    check(tool.exists(), f"no {tool} to read K6's SASS")
+    sass = subprocess.run([str(tool), "-sass", str(cuda_lib.library_path())],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    counts, cur = {}, None
+    for line in sass.splitlines():
+        fn = re.search(r"Function : (\S+)", line)
+        if fn:
+            m = re.search(r"trilerp_ablation_kernelILi(\d)ELi(\d+)E",
+                          fn.group(1))
+            cur = (ABLATION_MODES[int(m.group(1))], int(m.group(2))) if m \
+                else None
+            if cur:
+                counts[cur] = 0
+        elif cur and "LDG" in line:
+            counts[cur] += 1
+    return counts
+
+
+def phase_k6(torch, dev):
+    """K6 at the trilerp profiler's shapes (tools/profile_trilerp.py's
+    random 256³ live volume and 16.8 M samples): each mode at each block
+    size bit-equal to its twin, the full mode bit-equal to K4's values; the
+    SASS keeps every load (the loads and full modes read the 8 taps on
+    top of the weights mode's 3 coordinates); each mode timed at 256
+    threads beside its twin and its bound, grid_sample beside the full
+    mode."""
+    from dynamicfusion_body_tpu_torch.ops.trilerp_cuda import (
+        ABLATION_MODES, ABLATION_THREADS, trilerp_ablation,
+        trilerp_ablation_ref, trilerp_bricks)
+    from dynamicfusion_body_tpu_torch.tools._scene import trilerp_inputs
+    from dynamicfusion_body_tpu_torch.tools.profile_trilerp import (
+        grid_sample_fn, mode_bounds)
+
+    live, wx, wy, wz = trilerp_inputs(RES, dev)
+    coords = (wx, wy, wz)
+    k4_vals = trilerp_bricks(live, *coords)[0]
+    bounds = mode_bounds(live, coords)
+    err = 0.0
+    times = {}
+    for mode in ABLATION_MODES:
+        want = trilerp_ablation_ref(live, *coords, mode)
+        for threads in ABLATION_THREADS:
+            got = trilerp_ablation(live, *coords, mode, threads)
+            torch.cuda.synchronize()
+            n_neq = int(torch.sum(got != want))
+            err = max(err, float(torch.max(torch.abs(got - want))))
+            check(n_neq == 0, f"K6 {mode} at {threads} threads differs from "
+                  f"its twin at {n_neq} samples (max {err})")
+            if mode == "full":
+                check(torch.equal(got, k4_vals),
+                      f"K6 full at {threads} threads differs from K4")
+            del got
+        del want
+        ms = cuda_ms(torch, lambda m=mode: trilerp_ablation(live, *coords,
+                                                            m, 256))
+        plain = cuda_ms(torch, lambda m=mode: trilerp_ablation_ref(
+            live, *coords, m), reps=3)
+        times[mode] = (ms, plain)
+        b = bounds[mode]
+        print(f"# K6 {mode}: bit-equal to its twin"
+              f"{' and to K4' if mode == 'full' else ''} at "
+              f"{'/'.join(map(str, ABLATION_THREADS))} threads; kernel "
+              f"(256 threads) {ms:.4f} ms, twin {plain:.4f} ms; bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}), "
+              f"{b['bound_ms'] / ms:.1%} of it")
+    lib_ms = cuda_ms(torch, grid_sample_fn(live, *coords))
+    loads = sass_loads(torch)
+    for t in ABLATION_THREADS:
+        n = {m: loads.get((m, t)) for m in ABLATION_MODES}
+        check(None not in n.values() and n["loads"] == n["full"]
+              == n["weights"] + 8,
+              f"K6 SASS at {t} threads: global loads {n}")
+    print(f"# K6 SASS global loads per instantiation: "
+          f"{ {f'{m}_t{t}': n for (m, t), n in sorted(loads.items())} }")
+    print(f"# K6 grid_sample {lib_ms:.4f} ms on the same samples")
+    ms, plain = times["full"]
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, **bounds["full"],
+                library_ms=lib_ms)
+
+
+class HashLines(io.TextIOBase):
+    """A text stream that writes each line to ``out`` as a '#' line."""
+
+    def __init__(self, out):
+        self.out = out
+        self.tail = ""
+
+    def write(self, text):
+        lines = (self.tail + text).split("\n")
+        self.tail = lines.pop()
+        for line in lines:
+            self.out.write((line if line.startswith("#") else "# " + line)
+                           + "\n")
+        self.out.flush()
+        return len(text)
+
+
+def phase_tools(torch):
+    """The profiling entry points at 256³, in this process:
+    profile_trilerp and profile_upd at their defaults, profile_mc,
+    profile_solve and profile_frame with --reps 3 and --trace into a
+    temporary directory (deleted after each tool). Returns {tool: rows}."""
+    from dynamicfusion_body_tpu_torch.tools import (
+        profile_frame, profile_mc, profile_solve, profile_trilerp,
+        profile_upd)
+
+    runs = ((profile_trilerp, False), (profile_upd, False),
+            (profile_mc, True), (profile_solve, True), (profile_frame, True))
+    out = {}
+    for tool, short in runs:
+        name = tool.__name__.rsplit(".", 1)[1]
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            argv = ["--reps", "3", "--trace", tmp] if short else []
+            with contextlib.redirect_stdout(HashLines(sys.stdout)):
+                out[name] = tool.main(argv)
+        print(f"# {name}{' --reps 3 --trace' if short else ''}: "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        torch.cuda.empty_cache()
+    # a traced row that is not whole (a port kernel traced fewer times
+    # than its wrapper launched it, or a launch without its kernel) says so
+    # and has no busy share; the single-launch rows must be whole
+    lost = {f"{tool.__name__.rsplit('.', 1)[1]}.{row}": r["trace_lost"]
+            for tool, short in runs if short
+            for row, r in out[tool.__name__.rsplit(".", 1)[1]].items()
+            if r["trace_lost"]}
+    n = sum(len(out[t.__name__.rsplit(".", 1)[1]]) for t, s in runs if s)
+    print(f"# traced rows whole: {n - len(lost)} of {n}; not whole: {lost}")
+    for tool, row in (("profile_mc", "mc_case_cross"),
+                      ("profile_frame", "trilerp_k4")):
+        r = out[tool][row]
+        check(not r["trace_lost"] and r["device_ms"] > 0,
+              f"the trace of {tool} {row} is not whole: {r['trace_lost']}")
+    return out
+
+
+def phase_bare_window(torch):
+    """How many kernel records a profiler window without device_trace's
+    pre-roll drops, in this process: PREROLL additions in a bare window.
+    Fails if the pre-roll would not cover the loss."""
+    from dynamicfusion_body_tpu_torch.utils.profiling import (
+        PREROLL, device_trace)
+
+    x = torch.zeros(1, device="cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        with device_trace(tmp, cuda=True, preroll=0) as tr:
+            for _ in range(PREROLL):
+                x.add_(1.0)
+        lost = tr.unmatched_launches()
+    print(f"# a profiler window without the pre-roll lost {lost} of its "
+          f"first {PREROLL} kernel launches")
+    check(lost < PREROLL, f"a bare profiler window lost all {PREROLL} of "
+          "its first kernel launches: the pre-roll may not cover the loss")
 
 
 def phase_padded(torch, dev):
@@ -910,10 +1053,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT))
     from dynamicfusion_body_tpu_torch.ops import cuda_lib
+    from dynamicfusion_body_tpu_torch.ops.fusion_cuda import fuse_depth_multi
     from dynamicfusion_body_tpu_torch.ops.mc_cuda import mc_case_cross
     from dynamicfusion_body_tpu_torch.ops.trilerp_cuda import (
+        trilerp_ablation, trilerp_bricks, warp_trilerp_bricks,
         warp_trilerp_bricks_cached)
     from dynamicfusion_body_tpu_torch.pipeline.frame import fusion_frame
 
@@ -939,11 +1083,23 @@ def main() -> int:
 
     rows = {}
     # launches of each kernel on the paths it serves (bench, config 4,
-    # config 6, config 7), each path's counts set to 0 just before it; K4
-    # (trilerp_bricks) serves none, so its count stays 0
-    total = dict.fromkeys(("mc_case_cross", "warp_trilerp_bricks_cached",
-                           "warp_trilerp_bricks", "trilerp_bricks",
-                           "fuse_depth_multi"), 0)
+    # config 6, config 7, the profiling tools), each path's counts set to 0
+    # just before it; K4 (trilerp_bricks) and K6 (trilerp_ablation) serve
+    # the tools only
+    meta = {
+        "mc_case_cross": ("mc_case_cross.cu", f"{PKG}/ops/mc_pallas.py:98"),
+        "warp_trilerp_bricks_cached": (
+            "warp_trilerp_cached.cu", f"{PKG}/ops/trilerp_pallas.py:656"),
+        "warp_trilerp_bricks": ("warp_trilerp_bricks.cu",
+                                f"{PKG}/ops/trilerp_pallas.py:742"),
+        "trilerp_bricks": ("trilerp_bricks.cu",
+                           f"{PKG}/ops/trilerp_pallas.py:227"),
+        "fuse_depth_multi": ("fuse_depth_multi.cu",
+                             f"{PKG}/ops/fusion_pallas.py:223"),
+        "trilerp_ablation": ("trilerp_ablation.cu",
+                             "tools/profile_trilerp.py:142"),
+    }
+    total = dict.fromkeys(meta, 0)
     rows["mc_case_cross"] = phase_k1(torch, dev)
     canonical, lives, wf = bench_state(torch, dev)
     rows["warp_trilerp_bricks_cached"] = phase_k2(torch, dev, lives, wf)
@@ -951,6 +1107,9 @@ def main() -> int:
     rows["warp_trilerp_bricks"], coords = phase_k3(torch, dev, lives[1], wf)
     rows["trilerp_bricks"] = phase_k4(torch, lives[1], coords)
     del coords
+    rows["trilerp_ablation"] = phase_k6(torch, dev)
+    torch.cuda.empty_cache()
+    stamp("K6")
     phase_padded(torch, dev)
     stamp("K3, K4, padded lattice")
     total["warp_trilerp_bricks"] = phase_config4(torch, dev, canonical,
@@ -1009,21 +1168,27 @@ def main() -> int:
                                  lws).items():
         total[name] += n
     stamp("config 7")
+    del verts, faces, depths
+    torch.cuda.empty_cache()
 
-    pkg = "dynamicfusion_body_tpu"
-    meta = {
-        "mc_case_cross": ("mc_case_cross.cu", "ops/mc_pallas.py:98"),
-        "warp_trilerp_bricks_cached": ("warp_trilerp_cached.cu",
-                                       "ops/trilerp_pallas.py:656"),
-        "warp_trilerp_bricks": ("warp_trilerp_bricks.cu",
-                                "ops/trilerp_pallas.py:742"),
-        "trilerp_bricks": ("trilerp_bricks.cu", "ops/trilerp_pallas.py:227"),
-        "fuse_depth_multi": ("fuse_depth_multi.cu",
-                             "ops/fusion_pallas.py:223"),
-    }
+    phase_bare_window(torch)
+    kernels = {k.__name__: k for k in (
+        mc_case_cross, warp_trilerp_bricks_cached, warp_trilerp_bricks,
+        trilerp_bricks, fuse_depth_multi, trilerp_ablation)}
+    for kern in kernels.values():
+        kern.launches = 0
+    phase_tools(torch)
+    launches = {name: k.launches for name, k in kernels.items()}
+    print(f"# tools launches {launches}")
+    check(launches["trilerp_ablation"] > 0, "the tools launched no K6")
+    check(launches["trilerp_bricks"] > 0, "the tools launched no K4")
+    for name, n in launches.items():
+        total[name] += n
+    stamp("profiling tools")
+
     table = {"kernels": [
-        dict(name=name, route="cuda", source=f"{pkg}_torch/csrc/{src}",
-             replaces=f"{pkg}/{tpu}", launches=total[name], **rows[name])
+        dict(name=name, route="cuda", source=f"{PKG}_torch/csrc/{src}",
+             replaces=tpu, launches=total[name], **rows[name])
         for name, (src, tpu) in meta.items()]}
     print(json.dumps(table))
     print(smi)

@@ -1,5 +1,6 @@
 // Device helpers shared by K2 (warp_trilerp_cached.cu), K3
-// (warp_trilerp_bricks.cu) and K4 (trilerp_bricks.cu): the dual-quaternion
+// (warp_trilerp_bricks.cu), K4 (trilerp_bricks.cu) and K6
+// (trilerp_ablation.cu): the dual-quaternion
 // normalization and sandwich of ops/compwise.py, and the trilerp of
 // ops/interp.py:trilinear_c (the JAX package's models/warp_field.py:
 // _trilinear_c), each in its PyTorch twin's operation order so that, with
@@ -65,21 +66,50 @@ __device__ __forceinline__ bool in_volume(float px, float py, float pz,
          pz >= 0.f && pz <= rz - 1.f;
 }
 
-// Trilerp of live (rx, ry, rz) at p: clip, floor, x1 = min(x0+1, r-1),
-// lerp x then y then z. Taps come straight from global memory.
-__device__ __forceinline__ float trilerp_c(const float* __restrict__ live,
-                                           int rx, int ry, int rz, float px,
-                                           float py, float pz) {
+// The index step of the trilerp of live (rx, ry, rz) at p: clip, floor,
+// x1 = min(x0+1, r-1), fractions.
+struct TrilerpIdx {
+  int x0, x1, y0, y1, z0, z1;
+  float xd, yd, zd;
+};
+
+__device__ __forceinline__ TrilerpIdx trilerp_index(int rx, int ry, int rz,
+                                                    float px, float py,
+                                                    float pz) {
   const float fx = fminf(fmaxf(px, 0.f), rx - 1.f);
   const float fy = fminf(fmaxf(py, 0.f), ry - 1.f);
   const float fz = fminf(fmaxf(pz, 0.f), rz - 1.f);
-  const int x0 = (int)floorf(fx), y0 = (int)floorf(fy), z0 = (int)floorf(fz);
-  const int x1 = min(x0 + 1, rx - 1), y1 = min(y0 + 1, ry - 1),
-            z1 = min(z0 + 1, rz - 1);
-  const float xd = fx - (float)x0, yd = fy - (float)y0, zd = fz - (float)z0;
+  TrilerpIdx t;
+  t.x0 = (int)floorf(fx);
+  t.y0 = (int)floorf(fy);
+  t.z0 = (int)floorf(fz);
+  t.x1 = min(t.x0 + 1, rx - 1);
+  t.y1 = min(t.y0 + 1, ry - 1);
+  t.z1 = min(t.z0 + 1, rz - 1);
+  t.xd = fx - (float)t.x0;
+  t.yd = fy - (float)t.y0;
+  t.zd = fz - (float)t.z0;
+  return t;
+}
+
+// One tap of live, straight from global memory through the read-only
+// cache.
+__device__ __forceinline__ float trilerp_tap(const float* __restrict__ live,
+                                             int ry, int rz, int ix, int iy,
+                                             int iz) {
+  return __ldg(live + ((int64_t)ix * ry + iy) * rz + iz);
+}
+
+// The lerp step: x then y then z over the 8 taps of an index step.
+__device__ __forceinline__ float trilerp_lerp(const float* __restrict__ live,
+                                              int ry, int rz,
+                                              const TrilerpIdx& t) {
   auto g = [&](int ix, int iy, int iz) {
-    return __ldg(live + ((int64_t)ix * ry + iy) * rz + iz);
+    return trilerp_tap(live, ry, rz, ix, iy, iz);
   };
+  const int x0 = t.x0, x1 = t.x1, y0 = t.y0, y1 = t.y1, z0 = t.z0,
+            z1 = t.z1;
+  const float xd = t.xd, yd = t.yd, zd = t.zd;
   const float c00 = g(x0, y0, z0) * (1.f - xd) + g(x1, y0, z0) * xd;
   const float c01 = g(x0, y1, z0) * (1.f - xd) + g(x1, y1, z0) * xd;
   const float c10 = g(x0, y0, z1) * (1.f - xd) + g(x1, y0, z1) * xd;
@@ -87,6 +117,13 @@ __device__ __forceinline__ float trilerp_c(const float* __restrict__ live,
   const float c0 = c00 * (1.f - yd) + c01 * yd;
   const float c1 = c10 * (1.f - yd) + c11 * yd;
   return c0 * (1.f - zd) + c1 * zd;
+}
+
+// Trilerp of live (rx, ry, rz) at p: the index step, then the lerp step.
+__device__ __forceinline__ float trilerp_c(const float* __restrict__ live,
+                                           int rx, int ry, int rz, float px,
+                                           float py, float pz) {
+  return trilerp_lerp(live, ry, rz, trilerp_index(rx, ry, rz, px, py, pz));
 }
 
 }  // namespace

@@ -356,6 +356,19 @@ def update_tsdf_nonrigid(
                                  vol_shape, brick)
         tsdf_l, valid = _trilinear_c(live, wx, wy, wz)
 
+    out_v, out_w = merge_running_average(values, weights, tsdf_l, valid, wi,
+                                         tdist, wmax, brick)
+    esc_dropped = torch.zeros((), dtype=torch.long, device=values.device)
+    return out_v, out_w, esc_dropped, pool_risk
+
+
+def merge_running_average(values, weights, tsdf_l, valid, wi, tdist: float,
+                          wmax: float = 100.0, brick: int = 8):
+    """The running average of :func:`update_tsdf_nonrigid` (reference
+    core/fusion.py:186-198): the brick-row samples ``tsdf_l``/``valid``/
+    ``wi`` (NB, V) merged into the canonical ``values``/``weights``, with
+    the wi_t == 0 → wi substitution; a sample updates only when valid and
+    strictly above -tdist. Returns (values', weights')."""
     vals = vol_to_bricks(values, brick)
     wts = vol_to_bricks(weights, brick)
     wi_t = torch.where(wts == 0.0, wi, wts)
@@ -367,8 +380,7 @@ def update_tsdf_nonrigid(
                             brick)
     out_w = vol_from_bricks(torch.where(upd, new_wts, wts), values.shape,
                             brick)
-    esc_dropped = torch.zeros((), dtype=torch.long, device=values.device)
-    return out_v, out_w, esc_dropped, pool_risk
+    return out_v, out_w
 
 
 def update_graph(wf: WarpField, verts, valid_verts, k: int):

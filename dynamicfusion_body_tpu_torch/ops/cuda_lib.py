@@ -61,6 +61,10 @@ SIGNATURES = {
     "dfb_trilerp_bricks": (
         _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _P, _P, _P,
     ),
+    # (mode, threads, live, wx, wy, wz, n, rx, ry, rz, out, stream)
+    "dfb_trilerp_ablation": (
+        _I, _I, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _P, _P,
+    ),
     # (vals, wts, depths, projs, kinv_row2, n_views, h, w, X, Y, Z,
     #  tdist, wmax, vals_out, wts_out, stream)
     "dfb_fuse_depth_multi": (

@@ -18,25 +18,32 @@ def trilinear(volume: torch.Tensor, pos: torch.Tensor):
     return trilinear_c(volume, pos[..., 0], pos[..., 1], pos[..., 2])
 
 
-def trilinear_c(volume: torch.Tensor, px, py, pz):
-    """:func:`trilinear` on separate coordinate tensors of one shape —
-    counterpart of ``models/warp_field.py:_trilinear_c`` in the JAX
-    package, and the formula the K2 kernel evaluates."""
-    rx, ry, rz = volume.shape
+def trilinear_index(shape, px, py, pz):
+    """The index step of :func:`trilinear_c` for a volume of ``shape``:
+    clip, floor, ``x1 = min(x0+1, r-1)``, fractions. Returns
+    ((x0, x1), (y0, y1), (z0, z1), (xd, yd, zd)), indices int64."""
+    rx, ry, rz = shape
     fx = torch.clamp(px, 0.0, rx - 1.0)
     fy = torch.clamp(py, 0.0, ry - 1.0)
     fz = torch.clamp(pz, 0.0, rz - 1.0)
-    valid = ((px >= 0.0) & (px <= rx - 1.0) & (py >= 0.0) & (py <= ry - 1.0)
-             & (pz >= 0.0) & (pz <= rz - 1.0))
     x0 = torch.floor(fx).long()
     y0 = torch.floor(fy).long()
     z0 = torch.floor(fz).long()
     x1 = torch.clamp_max(x0 + 1, rx - 1)
     y1 = torch.clamp_max(y0 + 1, ry - 1)
     z1 = torch.clamp_max(z0 + 1, rz - 1)
-    xd = fx - x0
-    yd = fy - y0
-    zd = fz - z0
+    return (x0, x1), (y0, y1), (z0, z1), (fx - x0, fy - y0, fz - z0)
+
+
+def trilinear_c(volume: torch.Tensor, px, py, pz):
+    """:func:`trilinear` on separate coordinate tensors of one shape —
+    counterpart of ``models/warp_field.py:_trilinear_c`` in the JAX
+    package, and the formula the K2 kernel evaluates."""
+    rx, ry, rz = volume.shape
+    valid = ((px >= 0.0) & (px <= rx - 1.0) & (py >= 0.0) & (py <= ry - 1.0)
+             & (pz >= 0.0) & (pz <= rz - 1.0))
+    (x0, x1), (y0, y1), (z0, z1), (xd, yd, zd) = trilinear_index(
+        volume.shape, px, py, pz)
     flat = volume.reshape(-1)
 
     def g(ix, iy, iz):

@@ -83,19 +83,48 @@ def marching_cubes(
     """
     if step_size > 1:
         vol = vol[::step_size, ::step_size, ::step_size]
-    X, Y, Z = vol.shape
-    nxyz = X * Y * Z
     dev = vol.device
-    tri_table, tri_count, edge_off = _tables(dev)
     fused = (mc_case_cross if use_kernels else mc_case_cross_ref)(vol, level)
     fused = fused.reshape(-1)
+    edges, elin, lin1, et, verts = mc_vertices(vol, fused, level, vert_cap)
+    n_verts = edges.numel()
+    vmask = torch.arange(vert_cap, device=dev) < n_verts
+    faces, n_faces = mc_faces(fused, edges, vol.shape, face_cap, vert_cap)
+    nf = min(n_faces, face_cap)
+    if with_normals:
+        normals = mc_normals(vol, elin, lin1, et)
+    else:
+        normals = torch.zeros((vert_cap, 3), dtype=torch.float32, device=dev)
 
-    # ---- vertices: one per crossing edge, ascending edge id ------------
+    if step_size > 1:
+        verts = verts * step_size
+    verts = torch.where(vmask[:, None], verts, 0.0)
+    normals = torch.where(vmask[:, None], normals, 0.0)
+    values = torch.where(vmask, torch.full_like(et, float(level)), 0.0)
+    return {
+        "verts": verts,
+        "normals": normals,
+        "values": values,
+        "faces": faces,
+        "n_verts": torch.tensor(min(n_verts, vert_cap), device=dev),
+        "n_faces": torch.tensor(nf, device=dev),
+        "overflow": torch.tensor(n_verts > vert_cap or n_faces > face_cap,
+                                 device=dev),
+    }
+
+
+def mc_vertices(vol, fused, level: float, vert_cap: int):
+    """The vertex stage: one vertex per crossing lattice edge of the K1
+    words ``fused`` (flat), in ascending edge id, at the linear zero
+    crossing. Returns (edges (sorted crossing edge ids, all of them),
+    elin, lin1 (the edges' low and high lattice voxels), et (crossing
+    fraction), verts (vert_cap, 3)), the last four padded or cut to
+    ``vert_cap``."""
+    X, Y, Z = vol.shape
+    nxyz = X * Y * Z
     flat_mask = torch.cat([((fused >> (8 + a)) & 1).bool() for a in range(3)])
     edges = torch.nonzero(flat_mask).flatten()      # sorted edge ids
-    n_verts = edges.numel()
     ev = _pad_to(edges, vert_cap)
-    vmask = torch.arange(vert_cap, device=dev) < n_verts
     ea = ev // nxyz
     elin = ev % nxyz
     ei = elin // (Y * Z)
@@ -115,8 +144,18 @@ def marching_cubes(
         ej.float() + torch.where(ea == 1, et, zero),
         ek.float() + torch.where(ea == 2, et, zero),
     ], dim=-1)
+    return edges, elin, lin1, et, verts
 
-    # ---- faces: TRI_COUNT[case] per cell, ascending cell id -------------
+
+def mc_faces(fused, edges, shape, face_cap: int, vert_cap: int):
+    """The face stage: ``TRI_COUNT[case]`` triangles per cell in ascending
+    cell id; a corner's vertex is its edge's rank among ``edges``. Faces
+    touching a vertex beyond ``vert_cap`` are zeroed. Returns (faces
+    (face_cap, 3) int64, the uncapped face count)."""
+    X, Y, Z = shape
+    nxyz = X * Y * Z
+    dev = fused.device
+    tri_table, tri_count, edge_off = _tables(dev)
     case = fused & 255
     ntris = tri_count[case]
     cells = torch.nonzero(ntris).flatten()
@@ -140,34 +179,18 @@ def marching_cubes(
         cols.append(torch.searchsorted(edges, eid))
     faces = torch.stack(cols, dim=-1)
     face_ok = torch.all(faces < vert_cap, dim=-1)
-    faces = _pad_to(torch.where(face_ok[:, None], faces, 0), face_cap)
+    return _pad_to(torch.where(face_ok[:, None], faces, 0), face_cap), n_faces
 
-    # ---- normals ---------------------------------------------------------
-    if with_normals:
-        comps = []
-        for g in torch.gradient(vol):
-            gf = g.reshape(-1)
-            g0 = gf[elin]
-            g1 = gf[lin1]
-            comps.append(g0 + et * (g1 - g0))
-        nrm = -torch.stack(comps, dim=-1)
-        nn = torch.linalg.vector_norm(nrm, dim=-1, keepdim=True)
-        normals = nrm / torch.clamp_min(nn, 1e-20)
-    else:
-        normals = torch.zeros((vert_cap, 3), dtype=torch.float32, device=dev)
 
-    if step_size > 1:
-        verts = verts * step_size
-    verts = torch.where(vmask[:, None], verts, 0.0)
-    normals = torch.where(vmask[:, None], normals, 0.0)
-    values = torch.where(vmask, torch.full_like(et, float(level)), 0.0)
-    return {
-        "verts": verts,
-        "normals": normals,
-        "values": values,
-        "faces": faces,
-        "n_verts": torch.tensor(min(n_verts, vert_cap), device=dev),
-        "n_faces": torch.tensor(nf, device=dev),
-        "overflow": torch.tensor(n_verts > vert_cap or n_faces > face_cap,
-                                 device=dev),
-    }
+def mc_normals(vol, elin, lin1, et):
+    """The normal stage: the normalized negative gradient at each vertex,
+    a 2-tap lerp of its edge's endpoint central-difference gradients."""
+    comps = []
+    for g in torch.gradient(vol):
+        gf = g.reshape(-1)
+        g0 = gf[elin]
+        g1 = gf[lin1]
+        comps.append(g0 + et * (g1 - g0))
+    nrm = -torch.stack(comps, dim=-1)
+    nn = torch.linalg.vector_norm(nrm, dim=-1, keepdim=True)
+    return nrm / torch.clamp_min(nn, 1e-20)

@@ -13,16 +13,19 @@
   Gaussian weights and ``wi`` are computed in the kernel; no mip
   certificate;
 * K4 ``trilerp_bricks`` (``csrc/trilerp_bricks.cu``): the trilerp alone,
-  at given coordinates.
+  at given coordinates;
+* K6 ``trilerp_ablation`` (``csrc/trilerp_ablation.cu``): K4 taken apart
+  into its tap loads and its weights, counterpart of the TPU ablation in
+  ``tools/profile_trilerp.py:142``, for the profiling tools.
 
-All three share one device trilerp (``csrc/trilerp.cuh``), the formula of
+All four share one device trilerp (``csrc/trilerp.cuh``), the formula of
 ``ops/interp.py:trilinear_c`` (the JAX package's ``_trilinear_c``). What
 the TPU mechanisms become here:
 * the (16, 24, Z) VMEM staging box and its escape output are gone: the
   kernels read taps straight from global memory, so no sample escapes and
   ``valid`` is exactly "inside the live volume";
-* the bf16 hi/lo MXU contraction becomes the plain f32 formula (the
-  caller's near-threshold re-sample stays, see
+* the bf16 hi/lo MXU contraction becomes the plain f32 formula (so the
+  JAX update's near-threshold re-sample has no counterpart, see
   ``models/warp_field.py:update_tsdf_nonrigid``);
 * the packed (M, 16) node table becomes the WarpField's own arrays: K2
   reads the (M, 8) node DQs, K3 also the positions, supports and active
@@ -43,7 +46,7 @@ import torch
 
 from . import cuda_lib
 from .compwise import dq_normalize8_c, dq_point_c
-from .interp import trilinear_c
+from .interp import trilinear_c, trilinear_index
 
 
 def _axis_windowred(v, axis, red):
@@ -350,6 +353,21 @@ def trilerp_bricks_supported(shape, brick: int = 8) -> bool:
     return len(shape) == 3 and all(int(s) >= 1 for s in shape)
 
 
+def _trilerp_args(name, live, wx, wy, wz):
+    """K4's and K6's inputs checked (a 3-D volume on the card, coordinates
+    of one shape) and made contiguous f32: (live, [wx, wy, wz])."""
+    if live.device.type != "cuda":
+        raise ValueError(f"{name}: device {live.device}")
+    if not trilerp_bricks_supported(live.shape):
+        raise ValueError(f"{name}: live {tuple(live.shape)} is not a 3-D "
+                         "volume")
+    if wx.shape != wy.shape or wx.shape != wz.shape:
+        raise ValueError(f"{name}: wx, wy, wz differ in shape")
+    f32 = torch.float32
+    return (live.to(f32).contiguous(),
+            [w.to(f32).contiguous() for w in (wx, wy, wz)])
+
+
 def trilerp_bricks_ref(live, wx, wy, wz):
     """Plain PyTorch twin of K4: (vals, valid, escaped); escaped is all
     False."""
@@ -369,19 +387,10 @@ def trilerp_bricks(live, wx, wy, wz):
     or raises."""
     if live.device.type == "cpu":
         return trilerp_bricks_ref(live, wx, wy, wz)
-    if live.device.type != "cuda":
-        raise ValueError(f"trilerp_bricks: device {live.device}")
-    if not trilerp_bricks_supported(live.shape):
-        raise ValueError(f"trilerp_bricks: live {tuple(live.shape)} is not "
-                         "a 3-D volume")
-    if wx.shape != wy.shape or wx.shape != wz.shape:
-        raise ValueError("trilerp_bricks: wx, wy, wz differ in shape")
+    live_c, coords = _trilerp_args("trilerp_bricks", live, wx, wy, wz)
     rx, ry, rz = live.shape
     dev = live.device
-    f32 = torch.float32
-    coords = [w.to(f32).contiguous() for w in (wx, wy, wz)]
-    live_c = live.to(f32).contiguous()
-    vals = torch.empty(wx.shape, dtype=f32, device=dev)
+    vals = torch.empty(wx.shape, dtype=torch.float32, device=dev)
     valid = torch.empty(wx.shape, dtype=torch.bool, device=dev)
     err = cuda_lib.lib().dfb_trilerp_bricks(
         live_c.data_ptr(), *(c.data_ptr() for c in coords), wx.numel(),
@@ -393,3 +402,69 @@ def trilerp_bricks(live, wx, wy, wz):
 
 
 trilerp_bricks.launches = 0
+
+
+ABLATION_MODES = ("loads", "weights", "full")
+ABLATION_THREADS = (128, 256, 512)
+
+
+def _check_mode(mode):
+    if mode not in ABLATION_MODES:
+        raise ValueError(f"trilerp_ablation: mode {mode!r} is not one of "
+                         f"{ABLATION_MODES}")
+
+
+def trilerp_ablation_ref(live, wx, wy, wz, mode: str):
+    """Plain PyTorch twin of K6, in the kernel's operation order: ``full``
+    is :func:`trilinear_c`'s value; ``loads`` the sum of the 8 taps and
+    ``weights`` the sum of the 8 products (1-xd|xd)·(1-yd|yd)·(1-zd|zd),
+    both over the corners x fastest, then y, then z."""
+    _check_mode(mode)
+    if mode == "full":
+        return trilinear_c(live, wx, wy, wz)[0]
+    xs, ys, zs, (xd, yd, zd) = trilinear_index(live.shape, wx, wy, wz)
+    _, ry, rz = live.shape
+    flat = live.reshape(-1)
+    ax, ay, az = (1 - xd, xd), (1 - yd, yd), (1 - zd, zd)
+    out = None
+    for c in range(8):
+        a, b, d = c & 1, (c >> 1) & 1, c >> 2
+        if mode == "loads":
+            term = flat[(xs[a] * ry + ys[b]) * rz + zs[d]]
+        else:
+            term = ax[a] * ay[b] * az[d]
+        out = term if out is None else out + term
+    return out
+
+
+def trilerp_ablation(live, wx, wy, wz, mode: str, threads: int = 256):
+    """K6: one of K4's parts at the coordinates wx/wy/wz (any one shape)
+    on ``live`` (rx, ry, rz) f32, one thread per sample in blocks of
+    ``threads`` (128, 256 or 512; the TPU kernel's ``group``). ``mode``:
+    ``loads`` (the tap loads alone, summed), ``weights`` (the weights
+    alone, summed; reads nothing of ``live``) or ``full`` (K4's vals).
+    Returns f32 of the coordinates' shape. The TPU kernel's bf16 pass
+    count and tent weights have no counterpart (f32, no matrix unit).
+
+    A CPU tensor takes the plain twin; a CUDA tensor launches the kernel
+    or raises."""
+    _check_mode(mode)
+    if threads not in ABLATION_THREADS:
+        raise ValueError(f"trilerp_ablation: {threads} threads per block is "
+                         f"not one of {ABLATION_THREADS}")
+    if live.device.type == "cpu":
+        return trilerp_ablation_ref(live, wx, wy, wz, mode)
+    live_c, coords = _trilerp_args("trilerp_ablation", live, wx, wy, wz)
+    rx, ry, rz = live.shape
+    dev = live.device
+    out = torch.empty(wx.shape, dtype=torch.float32, device=dev)
+    err = cuda_lib.lib().dfb_trilerp_ablation(
+        ABLATION_MODES.index(mode), threads, live_c.data_ptr(),
+        *(c.data_ptr() for c in coords), wx.numel(), rx, ry, rz,
+        out.data_ptr(), cuda_lib.stream_ptr(dev))
+    cuda_lib.check("trilerp_ablation", err)
+    trilerp_ablation.launches += 1
+    return out
+
+
+trilerp_ablation.launches = 0

@@ -394,3 +394,27 @@ def gn_solve_core(node_dq, data_args, reg_args, lw_dq, gn_iters: int,
         else:
             x, e, dmp, e_asm = x2, e2, dmp2, e_asm2
     return x, cost0_raw, cost0, e, dmp, ell_overflow
+
+
+def solve_nonrigid(node_dq, verts, normals, corrs, corr_mask, nbr_idx,
+                   blend_wts, pair_i, pair_j, pair_v, pair_scale, pair_mask,
+                   lw_dq, gn_iters: int = 8, cg_iters: int = 32,
+                   damping: float = 1e-4, ftol: float = 1e-5,
+                   dense_pairs: bool = False, damping_init=None):
+    """Single-device non-rigid GN solve: :func:`gn_solve_core` on the
+    argument lists of the JAX package's ``solve_nonrigid``
+    (``solvers/nonrigid.py:992``), with a per-call slot dictionary.
+    ``ftol`` is the reference's scipy ftol (core/fusion.py:391).
+    ``dense_pairs`` is accepted and ignored: in JAX it only promises
+    ``pair_i == repeat(arange(M), k)`` so that the TPU's segment sums
+    become reshapes, and ``index_add_`` needs no such promise. The JAX
+    options its callers leave at their defaults (``cg_rtol``,
+    ``use_ell``, ``freeze_frac``, ``flat_factor``) are the module's fixed
+    behaviour here.
+
+    Returns (node_dq, cost0_raw, cost0, cost1, dmp_out, ell_overflow)."""
+    del dense_pairs  # a layout promise of the TPU reducers
+    return gn_solve_core(
+        node_dq, (verts, normals, corrs, corr_mask, nbr_idx, blend_wts),
+        (pair_i, pair_j, pair_v, pair_scale, pair_mask), lw_dq, gn_iters,
+        cg_iters, damping, ftol, damping_init=damping_init)

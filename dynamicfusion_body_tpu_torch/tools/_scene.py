@@ -1,0 +1,104 @@
+"""The profiling tools' inputs, made from seeds: bench.py's scene (the
+bumpy canonical sphere, the live sphere of ``benchmarks/suite.py`` config
+4 and the 4096-node field of ``init_canonical``) and the JAX trilerp
+profiler's random samples. At ``res`` = 256 they are the JAX tools' own;
+a smaller ``res`` scales the spheres and the caps with it so that a CPU
+run at 32³ stays small."""
+
+from __future__ import annotations
+
+import sys
+from pathlib import Path
+from types import SimpleNamespace
+
+import numpy as np
+import torch
+
+from ..models.warp_field import neighbor_lookup
+from ..ops.marching_cubes import marching_cubes
+from ..pipeline.frame import _blend_weights, init_canonical
+from ..solvers.nonrigid import make_reg_pairs
+
+LW_REF = (1.0, 0.0, 0.0, 0.0, 0.0, 0.1, 0.0, 0.0)  # config 4's global pose
+KNN_K = 3
+
+
+def cap(base: int, res: int, floor: int = 2048) -> int:
+    """A mesh or node cap given at 256³, scaled with the surface (res²),
+    at least ``floor``."""
+    return max(base * res * res // (256 * 256), floor)
+
+
+def bumpy(res: int, center, phase: float):
+    """bench.py's ``bumpy_sdf`` with the 256³ scene's centre, radius and
+    bump amplitude scaled to ``res``."""
+    root = str(Path(__file__).resolve().parents[2])  # bench.py's directory
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from bench import bumpy_sdf
+
+    s = res / 256
+    return bumpy_sdf(res, tuple(c * s for c in center), 70.0 * s, 4.0 * s,
+                     3.0, phase)
+
+
+def bench_scene(res: int, dev: torch.device):
+    """The bench canonical (``bench.py:77``), config 4's live volume
+    (``benchmarks/suite.py:193-226``), tdist, the global pose and the
+    ``init_canonical`` field of the bench settings (subsample rate 1.5,
+    stride-2 MC)."""
+    canonical = torch.from_numpy(bumpy(res, (128, 128, 128), 0.0)).to(dev)
+    live = torch.from_numpy(bumpy(res, (130, 129, 128), 0.1)).to(dev)
+    caps = dict(vert_cap=cap(1 << 15, res),
+                face_cap=cap(1 << 16, res, 4096))
+    wf, _ = init_canonical(canonical, subsample_rate=1.5,
+                           node_cap=cap(4096, res, 256), mc_step=2, **caps)
+    lw = torch.tensor(LW_REF, dtype=torch.float32, device=dev)
+    return SimpleNamespace(canonical=canonical, live=live,
+                           tdist=float(canonical.max()), wf=wf, lw=lw,
+                           shape=(res,) * 3, **caps)
+
+
+def meshes(sc):
+    """The canonical mesh at stride 2 and the live mesh at stride 1 (the
+    frame's caps), their valid masks, the canonical vertices' node
+    neighbours and blend weights."""
+    dev = sc.canonical.device
+    mesh = marching_cubes(sc.canonical, 0.0, vert_cap=sc.vert_cap,
+                          face_cap=sc.face_cap, step_size=2, use_kernels=True)
+    vmask = torch.arange(sc.vert_cap, device=dev) < mesh["n_verts"]
+    live_cap = (cap(1 << 17, sc.shape[0]),
+                cap(1 << 18, sc.shape[0], 4096))
+    live_mesh = marching_cubes(sc.live, 0.0, vert_cap=live_cap[0],
+                               face_cap=live_cap[1], step_size=1,
+                               use_kernels=True)
+    lmask = torch.arange(live_cap[0], device=dev) < live_mesh["n_verts"]
+    nbr_idx = neighbor_lookup(sc.wf, mesh["verts"], KNN_K)
+    blend = _blend_weights(sc.wf, mesh["verts"], nbr_idx)
+    return SimpleNamespace(mesh=mesh, vmask=vmask, live_mesh=live_mesh,
+                           lmask=lmask, live_cap=live_cap, nbr_idx=nbr_idx,
+                           blend=blend)
+
+
+def reg_pairs(sc, ms, rw: float = 0.5):
+    """(pair_i, pair_j, pair_v, pair_scale, pair_mask) of the field at
+    regularization weight ``rw``."""
+    wf = sc.wf
+    pair_i, pair_j, pair_scale, pmask = make_reg_pairs(
+        wf.node_vert_idx, ms.nbr_idx, wf.node_w, wf.active, rw)
+    return pair_i, pair_j, wf.node_pos[pair_j], pair_scale, pmask
+
+
+def trilerp_inputs(res: int, dev: torch.device):
+    """``tools/profile_trilerp.py:37-46``: ``np.random.RandomState(0)``,
+    live ``rand(R, R, R)`` and per-brick coordinates ``base + offs`` of
+    shape ((R/8)³, 512) each (16.8 M samples at 256³)."""
+    rng = np.random.RandomState(0)
+    live = rng.rand(res, res, res).astype(np.float32)
+    nb = (res // 8) ** 3
+    base = rng.rand(nb, 1, 3).astype(np.float32) * (res - 12)
+    offs = rng.rand(nb, 512, 3).astype(np.float32) * 8.0
+    w = base + offs
+    return (torch.from_numpy(live).to(dev),
+            *(torch.from_numpy(np.ascontiguousarray(w[..., a])).to(dev)
+              for a in range(3)))

@@ -17,7 +17,7 @@ import bench, chip_smoke  # chip_smoke's own imports, and bench's bumpy_sdf
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax",
                                     "dynamicfusion_body_tpu"))
-assert len(mods) >= 38, mods
+assert len(mods) >= 46, mods
 assert not bad, bad
 print("ok")
 """

@@ -1,0 +1,148 @@
+"""The port's profiling entry points (dynamicfusion_body_tpu_torch/tools)
+at 32³ on the CPU, where the kernels' plain twins run: each tool returns
+its named rows with finite host times, and ``device_trace`` writes a
+trace and returns the profiler's averages, and a row's trace counts as
+whole only when nothing it launched is missing from it."""
+
+import json
+import math
+import os
+
+import pytest
+import torch
+
+from dynamicfusion_body_tpu_torch.ops.trilerp_cuda import (
+    ABLATION_MODES, ABLATION_THREADS)
+from dynamicfusion_body_tpu_torch.tools import (
+    _timing, profile_frame, profile_mc, profile_solve, profile_trilerp,
+    profile_upd)
+from dynamicfusion_body_tpu_torch.utils.profiling import (
+    BLOCK, DeviceTrace, device_trace)
+
+# One intra-op thread (see tests/test_torch_solvers.py)
+torch.set_num_threads(1)
+
+SMALL = ["--res", "32", "--device", "cpu", "--reps", "1"]
+
+ROWS = {
+    profile_trilerp: ["full_kernel", "grid_sample", "twin"] + [
+        f"{m}_t{n}" for m in ABLATION_MODES for n in ABLATION_THREADS],
+    profile_upd: [
+        "update_full_cached_cand", "build_warp_cache",
+        "update_full_warp_cache", "k2_cached", "k3_kernel",
+        "trilerp_only_k4", "trilerp_only_t128", "trilerp_only_t256",
+        "trilerp_only_t512", "merge_running_average", "config4_update",
+        "config4_candidates", "config4_merge"],
+    profile_solve: ["corr_exact"] + [
+        f"solve_gn{gn}_cg{cg}" for gn, cg in profile_solve.GRID],
+    profile_frame: [
+        "mc_live", "mc_canon_step2", "correspondence", "rigid_solve_12",
+        "rigid_solve_4", "nonrigid_solve_8gn16cg", "nonrigid_solve_1gn16cg",
+        "update_tsdf_full", "brick_candidates_2level", "trilerp_k4",
+        "update_graph"],
+    profile_mc: ["mc_full", "mc_case_cross", "mc_vertices", "mc_faces",
+                 "mc_normals"],
+}
+
+
+@pytest.mark.parametrize("tool", list(ROWS), ids=lambda m: m.__name__)
+def test_tool_rows(tool, capsys):
+    rows = tool.main(SMALL)
+    assert list(rows) == ROWS[tool]
+    for name, row in rows.items():
+        assert math.isfinite(row["wall_ms"]) and row["wall_ms"] > 0, name
+        assert row["event_ms"] is None, name  # no device metric on the CPU
+        if "bound_ms" in row:
+            assert row["bound_ms"] > 0 and row["bound_by"] in (
+                "bytes", "operations")
+    out = capsys.readouterr().out
+    assert "on cpu" in out and all(name in out for name in rows)
+
+
+def test_trilerp_bounds_count_this_run():
+    """The bounds of profile_trilerp: per sample 16 bytes, plus each
+    tapped live cell once for the modes that read live."""
+    live, wx, wy, wz = profile_trilerp.trilerp_inputs(32, torch.device("cpu"))
+    b = profile_trilerp.mode_bounds(live, (wx, wy, wz))
+    n = wx.numel()
+    assert b["weights"]["bound_ms"] == pytest.approx(16 * n / 3.35e12 * 1e3)
+    assert b["loads"]["bound_ms"] == b["full"]["bound_ms"]
+    assert b["full"]["bound_ms"] <= (16 * n + 4 * live.numel()) / 3.35e9
+    assert b["k4"]["bound_ms"] > b["full"]["bound_ms"]
+
+
+def test_device_trace_on_cpu(tmp_path):
+    with device_trace(str(tmp_path / "t")) as tr:
+        assert tr.averages is None
+        torch.randn(64, 64) @ torch.randn(64, 64)
+    assert os.path.getsize(tr.path) > 0
+    assert tr.path.startswith(str(tmp_path))
+    keys = {e.key for e in tr.averages}
+    assert any("mm" in k for k in keys), keys
+
+
+def _fake_trace(tmp_path, events):
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    tr = DeviceTrace()
+    tr.path = str(path)
+    return tr
+
+
+def _ev(cat, name, corr, ts, dur=10.0):
+    return dict(ph="X", cat=cat, name=name, ts=ts, dur=dur,
+                args={"correlation": corr})
+
+
+@pytest.mark.parametrize("case", ["whole", "lost_kernel", "unmatched"])
+def test_trace_summary_checks_the_trace(tmp_path, case):
+    """A row's trace holds the block's device activity only (not the
+    pre-roll's), and is whole only when every port kernel its wrappers
+    launched is in it and every launch of the block has its kernel."""
+    k4 = "trilerp_bricks_kernel(float const*, float const*)"
+    k3 = "warp_trilerp_bricks_kernel(float const*)"
+    fill = "vectorized_elementwise_kernel<4, FillFunctor>"
+    events = [_ev("cuda_runtime", "cudaLaunchKernel", 1, 10.0),
+              _ev("kernel", fill, 1, 20.0, 999.0),
+              _ev("user_annotation", BLOCK, None, 100.0, 900.0),
+              _ev("cuda_runtime", "cudaLaunchKernel", 2, 110.0),
+              _ev("kernel", k4, 2, 120.0, 100.0),
+              _ev("cuda_runtime", "cudaLaunchKernel", 3, 130.0),
+              _ev("kernel", k3, 3, 220.0, 300.0),
+              _ev("cuda_runtime", "cudaMemcpyAsync", 4, 140.0),
+              _ev("gpu_memcpy", "Memcpy DtoH", 4, 520.0, 50.0),
+              _ev("cpu_op", "aten::add", None, 150.0, 999.0)]
+    launched = {"trilerp_bricks_kernel": 1, "warp_trilerp_bricks_kernel": 1,
+                "mc_case_cross_kernel": 0}
+    if case == "lost_kernel":
+        launched["trilerp_bricks_kernel"] = 2
+    if case == "unmatched":
+        events.append(_ev("cuda_runtime", "cudaLaunchKernel", 5, 160.0))
+    tr = _fake_trace(tmp_path, events)
+    assert tr.device_kernels()[k4] == (0.1, 1)
+    assert fill not in tr.device_kernels()  # the pre-roll's
+    dev_ms, busy, top, lost = _timing.trace_summary(tr, 1.0, launched)
+    assert dev_ms == pytest.approx(0.45)
+    assert [k for _, _, k in top] == [k3, k4, "Memcpy DtoH"]
+    if case == "whole":
+        assert lost == {} and busy == pytest.approx(0.45)
+    elif case == "lost_kernel":
+        assert lost == {"trilerp_bricks_kernel": (2, 1)} and busy is None
+    else:
+        assert lost == {"unmatched": 1} and busy is None
+
+
+def test_tool_trace_on_cpu(tmp_path, capsys):
+    rows = profile_mc.main(SMALL + ["--trace", str(tmp_path)])
+    for name, row in rows.items():
+        assert os.path.isfile(tmp_path / name / "trace.json"), name
+        assert row["busy"] is None  # no device kernels on the CPU
+        assert row["trace_lost"] == {}  # and no port kernel launched
+    assert "busy not measured" in capsys.readouterr().out
+
+
+def test_tool_refuses_a_missing_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        profile_mc.main(["--res", "32", "--reps", "1"])
