@@ -7,16 +7,21 @@ Run from the repository root on a machine with one CUDA GPU:
 
 Phases, each of which raises on failure (exit code 1):
   0. print the card, torch and CUDA versions; build the kernels from
-     ``dynamicfusion_body_tpu_torch/csrc`` with nvcc for sm_90a;
+     ``dynamicfusion_body_tpu_torch/csrc`` with nvcc for sm_90a; print K2's
+     and each K3 instantiation's registers, spill bytes, CTAs per SM and
+     persistent grid (a spill fails);
   1. K1 (mc_case_cross) against its plain twin at 256³, 128³ and an odd
      shape — bit-equal;
   2. K2 (warp_trilerp_bricks_cached) against its plain twin on the 256³
      bench state with perturbed node DQs and a clipped live TSDF, so that
-     both mip-certified classes occur;
+     both mip-certified classes occur, with and without coordinates:
+     bit-equal (0 voxels differ); both calls timed, the row is the
+     update's (no coordinates);
   3. K3 (warp_trilerp_bricks) at config 4's 256³ shapes, with perturbed
-     node DQs so that the blend depends on the Gaussian weights, against
-     its twin (wi exact, valid exact but at the volume's faces, coordinates
-     and values within 1e-4) and against the warp cache + K2;
+     node DQs so that the blend depends on the Gaussian weights, at C = 8,
+     16 and 32 candidates (one kernel instantiation each), with and
+     without coordinates: bit-equal to its twin; at C = 16 also wi, valid
+     and the values held as before and against the warp cache + K2;
   4. K4 (trilerp_bricks) at K3's coordinates: bit-equal to its twin in the
      volume; timed beside grid_sample. K4's path is the profiling tools
      (phase 12), as in the JAX package;
@@ -25,8 +30,10 @@ Phases, each of which raises on failure (exit code 1):
      the full mode bit-equal to K4's values; the SASS of every
      instantiation keeps its global loads (the loads and full modes 8
      more than the weights mode: the taps); timed beside the bounds;
-  5. K2 and K3 on a 72³ canonical lattice over a 65³ live volume, and the
-     update's kernel arm against its plain arm there;
+  5. K2 and K3 on a 72³ canonical lattice over a 65³ live volume (with
+     and without coordinates, bit-equal), and the update's kernel arm
+     against its plain arm there; then both on a lattice whose brick count
+     leaves a ragged last round of their persistent grids (bit-equal);
   6. benchmarks/suite.py config 4: the non-rigid update at 256³ without
      caches (K3 once per call), 3 timed calls, the plain arm (p99.9
      |Δvalues| < 0.5);
@@ -104,14 +111,21 @@ ICP_VIEWS = 3
 # flipped, and every other value within the JAX-vs-oracle tolerance
 K5_FLIP_MAX = 16
 K5_TOL_VAL = 2e-5
-# f32 operations per voxel of K2 (k = 3: blend 40, normalize 25, two
-# dual-quaternion sandwiches 352, bounds 6) and per trilerped voxel (40)
-K2_OPS_VOXEL, K2_OPS_TRILERP = 423, 40
+# f32 operations per voxel of K2 (k = 3): blend 40 (8 + 2 x 16), normalize
+# 26 (squares and their sum 15, sqrt, compare, division, 8 scalings), two
+# dual-quaternion sandwiches with v's literal zeros and ones pruned, 69 each
+# (t[4:8] 4 x 6, components 5-7 of the outer product 3 x 15), the in-volume
+# test 6, the brick's coordinate range 6; and per trilerped voxel 40.
+# (With the full 176-operation sandwiches the count was 423.)
+K2_OPS_VOXEL, K2_OPS_TRILERP = 216, 40
 # K3, per voxel: d2 for each active candidate slot 8; k argmin passes of
 # C-1 compares; per pick sqrt, min, compares, division, 2 multiplies,
-# negation and exp ~10, the blend 16, wi 2; fixed: normalize 25, two
-# sandwiches 352, bounds 6, trilerp 40, wi division 2
-K3_OPS_SLOT, K3_OPS_PICK, K3_OPS_FIXED = 8, 28, 425
+# negation and exp ~10, the blend 16, wi 2; fixed: normalize 26, two pruned
+# sandwiches 138, bounds 6, trilerp 40, wi division 2, less the first
+# pick's 8 blend additions (425 with the full sandwiches)
+K3_OPS_SLOT, K3_OPS_PICK, K3_OPS_FIXED = 8, 28, 204
+# K3's candidate counts, one kernel instantiation (register budget) each
+K3_CANDIDATES = (8, 16, 32)
 # the global pose of benchmarks/suite.py config 4 and the Fusion driver
 LW_REF = (1.0, 0.0, 0.0, 0.0, 0.0, 0.1, 0.0, 0.0)
 ANGLES7 = (0.08, 0.16, 0.24)  # config 7's bends, rad
@@ -145,6 +159,48 @@ def cuda_ms(torch, fn, reps=10):
     return start.elapsed_time(end) / reps
 
 
+def n_not_equal(got, want):
+    """Voxels at which any output of a K2/K3 call differs from its twin's;
+    outputs the call did not write (None) are skipped."""
+    bad = None
+    for g, w in zip(got, want):
+        if g is not None:
+            d = g != w
+            bad = d if bad is None else bad | d
+    return int(bad.sum())
+
+
+def issue_ms(nops):
+    """The time ``nops`` f32 operations take at one instruction each (the
+    kernels build with -fmad=false, so no multiply-add is fused): half the
+    f32 rate."""
+    return nops / (F32_OPS / 2) * 1e3
+
+
+def print_kernel_info(torch):
+    """K2's and each K3 instantiation's registers, local (spill) bytes,
+    CTAs per SM (occupancy calculator) and persistent grid; fails on a
+    spill. Returns {(name, C): info}."""
+    from dynamicfusion_body_tpu_torch.ops.trilerp_cuda import kernel_info
+
+    out = {}
+    for C in K3_CANDIDATES:
+        for name, info in kernel_info(brick=8, k=3, C=C).items():
+            key = (name, None if name == "warp_trilerp_bricks_cached" else C)
+            out[key] = info
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for (name, C), info in out.items():
+        occ = info["ctas_per_sm"] * info["threads"] / 2048
+        print(f"# {name}{'' if C is None else f' C<={C}'}: registers "
+              f"{info['registers']}, local bytes {info['local_bytes']}, "
+              f"{info['threads']} threads, CTAs per SM {info['ctas_per_sm']} "
+              f"({occ:.1%} of the SM's threads), persistent grid "
+              f"{info['grid']} on {sms} SMs, dynamic shared "
+              f"{info['dynamic_smem']} B")
+        check(info["local_bytes"] == 0, f"{name} spills: {info}")
+    return out
+
+
 def phase_k1(torch, dev):
     from dynamicfusion_body_tpu_torch.ops.mc_cuda import (
         mc_case_cross, mc_case_cross_ref)
@@ -171,9 +227,9 @@ def phase_k1(torch, dev):
 
 
 def bench_state(torch, dev):
-    from bench import bumpy_sdf
     from dynamicfusion_body_tpu_torch.ops.marching_cubes import marching_cubes
     from dynamicfusion_body_tpu_torch.pipeline.frame import init_canonical
+    from dynamicfusion_body_tpu_torch.tools._scene import bumpy_sdf
 
     canonical = torch.from_numpy(
         bumpy_sdf(RES, (128, 128, 128), 70.0, 4.0, 3.0, 0.0)).to(dev)
@@ -201,7 +257,11 @@ def bench_state(torch, dev):
     return canonical, lives, wf
 
 
-def phase_k2(torch, dev, lives, wf):
+def phase_k2(torch, dev, lives, wf, grid):
+    """K2 on the 256³ bench state (node DQs perturbed, live clipped so that
+    both mip classes occur) against its twin, with and without
+    coordinates: bit-equal; both calls timed, the row is the main path's
+    (no coordinates)."""
     from dynamicfusion_body_tpu_torch.ops.trilerp_cuda import (
         live_brick_mip, mip_short_bricks, warp_trilerp_bricks_cached,
         warp_trilerp_bricks_cached_ref)
@@ -220,10 +280,12 @@ def phase_k2(torch, dev, lives, wf):
                       device=dev)
     args = (live, node_dq, cand, sel, selw, lw)
     kw = dict(brick=8, tdist=tdist, live_mip=mip)
-    vals, valid, wx, wy, wz = warp_trilerp_bricks_cached(*args, **kw)
-    r_vals, r_valid, r_wx, r_wy, r_wz = warp_trilerp_bricks_cached_ref(
-        *args, **kw)
+    got = {c: warp_trilerp_bricks_cached(*args, **kw, coords=c)
+           for c in (True, False)}
+    ref = warp_trilerp_bricks_cached_ref(*args, **kw)
     torch.cuda.synchronize()
+    vals, valid, wx, wy, wz = got[True]
+    r_vals, r_valid, r_wx, r_wy, r_wz = ref
     check(torch.equal(valid, r_valid), "K2 valid differs from its twin")
     err_w = max(float(torch.max(torch.abs(a - b)))
                 for a, b in ((wx, r_wx), (wy, r_wy), (wz, r_wz)))
@@ -231,6 +293,11 @@ def phase_k2(torch, dev, lives, wf):
                                                   0.0))))
     check(err_w <= K2_TOL_COORD, f"K2 coords differ by {err_w}")
     check(err_v <= K2_TOL_VAL, f"K2 values differ by {err_v}")
+    check(all(c is None for c in got[False][2:]),
+          "K2 without coordinates returned coordinates")
+    n_neq = {c: n_not_equal(got[c], ref) for c in got}
+    check(not any(n_neq.values()), f"K2 is not bit-equal to its twin: "
+          f"voxels differing {n_neq} (with / without coordinates)")
     short, cval = mip_short_bricks(r_wx, r_wy, r_wz, r_valid, live.shape,
                                    tdist, mip)
     n_skip = int(torch.sum(short & (cval == -tdist)))
@@ -239,40 +306,68 @@ def phase_k2(torch, dev, lives, wf):
           f"mip classes missing: skip {n_skip} const {n_const}")
     check(torch.equal(vals[short], cval[short, None].expand(-1, 512)),
           "K2 short-circuited bricks are not exact constants")
-    ms = cuda_ms(torch, lambda: warp_trilerp_bricks_cached(*args, **kw))
+    ms = {c: cuda_ms(torch, lambda c=c: warp_trilerp_bricks_cached(
+        *args, **kw, coords=c)) for c in (True, False)}
     plain = cuda_ms(torch,
                     lambda: warp_trilerp_bricks_cached_ref(*args, **kw),
                     reps=3)
     n_full = int(torch.sum(~short))
     n_taps = live_taps(live.shape, [w[~short] for w in (r_wx, r_wy, r_wz)])
     nb, v = sel.shape
-    # live: only the cells the full bricks tap (short-circuited bricks read
-    # none); the other inputs whole; outputs vals, wx, wy, wz, valid (1 B)
-    nbytes = (4 * n_taps
-              + sum(t.numel() * t.element_size()
-                    for t in (node_dq, cand.to(torch.int32), sel, selw, lw,
-                              *mip))
-              + 4 * 4 * nb * v + nb * v)
     nops = nb * v * K2_OPS_VOXEL + n_full * v * K2_OPS_TRILERP
-    row = dict(max_abs_err=max(err_w, err_v), ms=ms, plain_ms=plain,
-               **bound(nbytes, nops), library_ms=None)
-    print(f"# K2 {RES}^3: valid equal, coord err {err_w:.3g}, value err "
-          f"{err_v:.3g}; bricks skip {n_skip} const {n_const} full "
-          f"{n_full}; live cells tapped {n_taps} of {live.numel()}; kernel "
-          f"{ms:.4f} ms, twin {plain:.4f} ms; bound {row['bound_ms']:.4f} ms "
-          f"({row['bound_by']}; {nbytes / 1e6:.1f} MB, {nops / 1e9:.3f} "
-          f"G operations)")
-    return row
+    bounds = {}
+    for c in (True, False):
+        # live: only the cells the full bricks tap (short-circuited bricks
+        # read none); the other inputs whole; outputs vals, valid (1 B) and
+        # with coordinates wx, wy, wz
+        nbytes = (4 * n_taps
+                  + sum(t.numel() * t.element_size()
+                        for t in (node_dq, cand.to(torch.int32), sel, selw,
+                                  lw, *mip))
+                  + (4 * 4 if c else 4) * nb * v + nb * v)
+        bounds[c] = dict(**bound(nbytes, nops), mb=nbytes / 1e6)
+        b = bounds[c]
+        print(f"# K2 {RES}^3 {'with' if c else 'without'} coordinates: "
+              f"kernel {ms[c]:.4f} ms; bound {b['bound_ms']:.4f} ms "
+              f"({b['bound_by']}; {b['mb']:.1f} MB, {nops / 1e9:.3f} G "
+              f"operations, their -fmad=false issue {issue_ms(nops):.4f} "
+              f"ms), {b['bound_ms'] / ms[c]:.1%} of it; voxels not "
+              f"bit-equal to the twin {n_neq[c]}")
+    print(f"# K2 {RES}^3: NB {nb}, persistent grid {grid} (NB % grid = "
+          f"{nb % grid}); valid equal, coord err {err_w:.3g}, value err "
+          f"{err_v:.3g}; bricks skip {n_skip} const {n_const} full {n_full}; "
+          f"live cells tapped {n_taps} of {live.numel()}; twin {plain:.4f} "
+          f"ms")
+    b = bounds[False]
+    return dict(max_abs_err=max(err_w, err_v), ms=ms[False], plain_ms=plain,
+                bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+                library_ms=None)
 
 
-def phase_k3(torch, dev, live, wf):
+def k3_bound(live, wf, cand, k, coords, n_taps):
+    """(bound dict, bytes, operations) of one K3 call at these inputs."""
+    nb, C = cand.shape
+    v = 512
+    n_act = int(wf.active[cand].sum())  # active candidate slots
+    M = wf.capacity
+    # outputs vals, wi (+ wx, wy, wz) and valid (1 B); node rows once
+    nbytes = (4 * n_taps + M * (12 + 4 + 1 + 32) + 4 * cand.numel() + 32
+              + (5 if coords else 2) * 4 * nb * v + nb * v)
+    nops = (K3_OPS_SLOT * n_act * v
+            + nb * v * (k * (C - 1) + k * K3_OPS_PICK + K3_OPS_FIXED))
+    return bound(nbytes, nops), nbytes, nops
+
+
+def phase_k3(torch, dev, live, wf, grids):
     """K3 at config 4's shapes: the 256³ bench canonical's node field, its
-    two-level brick candidates (C = 16), k = 3, the live volume of
+    two-level brick candidates, k = 3, the live volume of
     benchmarks/suite.py config 4. Every node of that field holds the same
     DQ, and a normalized blend of equal DQs ignores its weights, so the
-    node DQs are perturbed here, as in phase K2. Held to its twin, and to
-    the cache builder followed by K2 (no mip certificate). Returns
-    (kernel-table row, K3's coordinates for phase K4)."""
+    node DQs are perturbed here, as in phase K2. At C = 8, 16 and 32 (one
+    instantiation each), with and without coordinates: bit-equal to its
+    twin; at config 4's C = 16 also held to build_warp_cache followed by
+    K2 (no mip certificate), both calls timed. Returns (kernel-table row,
+    K3's coordinates at C = 16 for phase K4)."""
     from dynamicfusion_body_tpu_torch.models.warp_field import (
         brick_candidates_2level, build_warp_cache)
     from dynamicfusion_body_tpu_torch.ops.trilerp_cuda import (
@@ -283,13 +378,43 @@ def phase_k3(torch, dev, live, wf):
     noise = torch.from_numpy(
         (0.02 * rng.standard_normal((wf.capacity, 8))).astype(np.float32))
     wf = wf.replace(node_dq=wf.node_dq + noise.to(dev))
-    cand = brick_candidates_2level(wf, (RES,) * 3, 8, 16)
     lw = torch.tensor(LW_REF, dtype=torch.float32, device=dev)
     k = 3
-    args = (live, wf.node_pos, wf.node_w, wf.active, wf.node_dq, cand, lw)
     kw = dict(brick=8, k=k)
-    got = warp_trilerp_bricks(*args, **kw)
-    ref = warp_trilerp_bricks_ref(*args, **kw)
+    for C in K3_CANDIDATES:
+        cand = brick_candidates_2level(wf, (RES,) * 3, 8, C)
+        args = (live, wf.node_pos, wf.node_w, wf.active, wf.node_dq, cand, lw)
+        got = {c: warp_trilerp_bricks(*args, **kw, coords=c)
+               for c in (True, False)}
+        ref = warp_trilerp_bricks_ref(*args, **kw)
+        torch.cuda.synchronize()
+        check(all(c is None for c in got[False][3:]),
+              "K3 without coordinates returned coordinates")
+        n_neq = {c: n_not_equal(got[c], ref) for c in got}
+        ms = {c: cuda_ms(torch, lambda c=c: warp_trilerp_bricks(
+            *args, **kw, coords=c)) for c in (True, False)}
+        n_taps = live_taps(live.shape, ref[3:])
+        nb = cand.shape[0]
+        grid = grids[C]
+        for c in (True, False):
+            b, nbytes, nops = k3_bound(live, wf, cand, k, c, n_taps)
+            print(f"# K3 {RES}^3 C {C} {'with' if c else 'without'} "
+                  f"coordinates: voxels not bit-equal to the twin "
+                  f"{n_neq[c]}; kernel {ms[c]:.4f} ms; bound "
+                  f"{b['bound_ms']:.4f} ms ({b['bound_by']}; bytes "
+                  f"{nbytes / HBM_BPS * 1e3:.4f} ms for {nbytes / 1e6:.1f} "
+                  f"MB, ops {nops / F32_OPS * 1e3:.4f} ms for "
+                  f"{nops / 1e9:.3f} G, their -fmad=false issue "
+                  f"{issue_ms(nops):.4f} ms), {b['bound_ms'] / ms[c]:.1%} of "
+                  f"it; NB {nb}, persistent grid {grid} (NB % grid = "
+                  f"{nb % grid})")
+        check(not any(n_neq.values()), f"K3 at C = {C} is not bit-equal to "
+              f"its twin: voxels differing {n_neq} (with / without "
+              "coordinates)")
+        if C == 16:  # config 4's
+            k3 = (args, got[True], ref, ms, n_taps, cand)
+        del got, ref
+    args, got, ref, ms, n_taps, cand = k3
     sel, selw, wi_c = build_warp_cache(wf, (RES,) * 3, cand, k, 8)
     k2 = warp_trilerp_bricks_cached(live, wf.node_dq, cand, sel, selw, lw,
                                     brick=8)
@@ -313,8 +438,6 @@ def phase_k3(torch, dev, live, wf):
     err_v = float(torch.max(torch.abs(torch.where(both, vals - r_vals, 0.0))))
     check(err_w <= K2_TOL_COORD, f"K3 coords differ by {err_w}")
     check(err_v <= K2_TOL_VAL, f"K3 values differ by {err_v}")
-    n_neq = int(torch.sum((vals != r_vals) | (wx != r_wx) | (wy != r_wy)
-                          | (wz != r_wz)))
     n_neq_k2 = int(torch.sum((vals != k2[0]) | (wx != k2[2]) | (wy != k2[3])
                              | (wz != k2[4]) | (valid != k2[1])))
     err_k2 = max(float(torch.max(torch.abs(a - b)))
@@ -322,29 +445,16 @@ def phase_k3(torch, dev, live, wf):
                               (torch.where(both, vals, 0.0),
                                torch.where(both, k2[0], 0.0))))
     check(err_k2 <= K2_TOL_COORD, f"K3 differs from cache + K2 by {err_k2}")
-    ms = cuda_ms(torch, lambda: warp_trilerp_bricks(*args, **kw))
-    plain = cuda_ms(torch, lambda: warp_trilerp_bricks_ref(*args, **kw),
-                    reps=3)
-    nb, v = vals.shape
-    C = cand.shape[1]
-    n_taps = live_taps(live.shape, (wx, wy, wz))
-    n_act = int(torch.sum(wf.active[cand]))  # active candidate slots
-    M = wf.capacity
-    nbytes = (4 * n_taps + M * (12 + 4 + 1 + 32) + 4 * cand.numel() + 32
-              + 5 * 4 * nb * v + nb * v)
-    nops = (K3_OPS_SLOT * n_act * v
-            + nb * v * (k * (C - 1) + k * K3_OPS_PICK + K3_OPS_FIXED))
-    row = dict(max_abs_err=max(err_w, err_v), ms=ms, plain_ms=plain,
-               **bound(nbytes, nops), library_ms=None)
-    print(f"# K3 {RES}^3 (NB {nb}, C {C}, k {k}): wi equal to the twin and "
-          f"to build_warp_cache; valid flips {n_vflip} (at the faces); "
-          f"coord err {err_w:.3g}, value err {err_v:.3g}; voxels not "
-          f"bit-equal to the twin {n_neq}, to cache + K2 {n_neq_k2} (max "
-          f"diff {err_k2:.3g}); kernel {ms:.4f} ms, twin {plain:.4f} ms; "
-          f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}; bytes "
-          f"{nbytes / HBM_BPS * 1e3:.4f} ms for {nbytes / 1e6:.1f} MB, ops "
-          f"{nops / F32_OPS * 1e3:.4f} ms for {nops / 1e9:.3f} G; live cells "
-          f"tapped {n_taps})")
+    plain = cuda_ms(torch, lambda: warp_trilerp_bricks_ref(*args, brick=8,
+                                                           k=k), reps=3)
+    b, _, _ = k3_bound(live, wf, cand, k, False, n_taps)
+    print(f"# K3 {RES}^3 C 16 (config 4): wi equal to the twin and to "
+          f"build_warp_cache; valid flips {n_vflip} (at the faces); coord "
+          f"err {err_w:.3g}, value err {err_v:.3g}; voxels not bit-equal to "
+          f"cache + K2 {n_neq_k2} (max diff {err_k2:.3g}); twin {plain:.4f} "
+          f"ms; live cells tapped {n_taps}")
+    row = dict(max_abs_err=max(err_w, err_v), ms=ms[False], plain_ms=plain,
+               **b, library_ms=None)
     return row, (wx, wy, wz)
 
 
@@ -560,7 +670,6 @@ def phase_padded(torch, dev):
     reference's .dist size, padded to the brick as Fusion.updateTSDF pads
     it), against their twins; then the update on the kernel arm against the
     plain arm."""
-    from bench import bumpy_sdf
     from dynamicfusion_body_tpu_torch.models.warp_field import (
         update_tsdf_nonrigid)
     from dynamicfusion_body_tpu_torch.ops.trilerp_cuda import (
@@ -568,6 +677,7 @@ def phase_padded(torch, dev):
         warp_trilerp_bricks_cached_ref, warp_trilerp_bricks_ref)
     from dynamicfusion_body_tpu_torch.pipeline.frame import (
         _build_caches, init_canonical)
+    from dynamicfusion_body_tpu_torch.tools._scene import bumpy_sdf
 
     canon = torch.from_numpy(bumpy_sdf(65, (32, 32, 32), 18.0, 1.0, 3.0,
                                        0.0)).to(dev)
@@ -583,15 +693,18 @@ def phase_padded(torch, dev):
     wf = wf.replace(node_dq=wf.node_dq + torch.from_numpy(noise).to(dev))
     lw = torch.tensor(LW_REF, dtype=torch.float32, device=dev)
     (cand, risk), (sel, selw, wi) = _build_caches(wf, shape, 8, 16, 3, False)
-    k2 = warp_trilerp_bricks_cached(live, wf.node_dq, cand, sel, selw, lw,
-                                    brick=8, vol_shape=shape)
-    k2r = warp_trilerp_bricks_cached_ref(live, wf.node_dq, cand, sel, selw,
-                                         lw, brick=8, vol_shape=shape)
+    k2_args = (live, wf.node_dq, cand, sel, selw, lw)
+    k2 = warp_trilerp_bricks_cached(*k2_args, brick=8, vol_shape=shape)
+    k2n = warp_trilerp_bricks_cached(*k2_args, brick=8, vol_shape=shape,
+                                     coords=False)
+    k2r = warp_trilerp_bricks_cached_ref(*k2_args, brick=8, vol_shape=shape)
     args = (live, wf.node_pos, wf.node_w, wf.active, wf.node_dq, cand, lw)
     k3 = warp_trilerp_bricks(*args, vol_shape=shape, brick=8, k=3)
+    k3n = warp_trilerp_bricks(*args, vol_shape=shape, brick=8, k=3,
+                              coords=False)
     k3r = warp_trilerp_bricks_ref(*args, vol_shape=shape, brick=8, k=3)
     torch.cuda.synchronize()
-    errs = []
+    errs, n_neq = [], {}
     for name, got, ref in (("K2", k2, k2r), ("K3", k3, k3r)):
         check(torch.equal(got[1], ref[1]), f"{name} padded: valid differs")
         err = float(torch.max(torch.abs(torch.where(ref[1], got[0] - ref[0],
@@ -600,6 +713,11 @@ def phase_padded(torch, dev):
             err = max(err, float(torch.max(torch.abs(g - r))))
         check(err <= K2_TOL_COORD, f"{name} padded differs by {err}")
         errs.append(err)
+    for name, got, ref in (("K2", k2, k2r), ("K2 no coordinates", k2n, k2r),
+                           ("K3", k3, k3r), ("K3 no coordinates", k3n, k3r)):
+        n_neq[name] = n_not_equal(got, ref)
+    check(not any(n_neq.values()),
+          f"padded: not bit-equal to the twins at {n_neq} voxels")
     n_out = int(torch.sum(~k3r[1]))
     kw = dict(k=3, tdist=tdist, brick=8, n_candidates=16)
     arms = {}
@@ -615,10 +733,62 @@ def phase_padded(torch, dev):
     check(dev_max <= 1e-3, f"padded update: kernel arm deviates {dev_max}")
     check(all(bool(torch.isfinite(a[0]).all()) for a in arms.values()),
           "padded update: non-finite TSDF")
-    print(f"# padded lattice {shape} over live {tuple(live.shape)}: K2 and "
-          f"K3 match their twins (max err {errs[0]:.3g}, {errs[1]:.3g}); "
+    print(f"# padded lattice {shape} over live {tuple(live.shape)} (NB "
+          f"{cand.shape[0]}): K2 and K3 match their twins (max err "
+          f"{errs[0]:.3g}, {errs[1]:.3g}; voxels not bit-equal {n_neq}); "
           f"{n_out} samples outside the live volume; update kernel vs plain "
           f"arm max |d| {dev_max:.3g}")
+
+
+def phase_ragged(torch, dev, grids):
+    """K2 (with the mip certificate) and K3 on a lattice whose brick count
+    is neither a multiple of either kernel's persistent grid nor below
+    twice it, so the CTAs walk two, three or more bricks and the last
+    round is ragged: a 24 x 32 x 8n clipped cylinder and a random node
+    graph. Bit-equal to their twins, with and without coordinates."""
+    from dynamicfusion_body_tpu_torch.models.warp_field import (
+        build_warp_cache, brick_candidates_2level, construct_graph)
+    from dynamicfusion_body_tpu_torch.ops.trilerp_cuda import (
+        live_brick_mip, warp_trilerp_bricks, warp_trilerp_bricks_cached,
+        warp_trilerp_bricks_cached_ref, warp_trilerp_bricks_ref)
+
+    g = max(grids.values())
+    n = 2 * g // 12 + 1
+    while any((12 * n) % gr == 0 for gr in grids.values()):
+        n += 1
+    shape = (24, 32, 8 * n)
+    nb = 12 * n
+    rng = np.random.default_rng(5)
+    x, y, z = np.meshgrid(*(np.arange(e, dtype=np.float32) for e in shape),
+                          indexing="ij")
+    tdist = 3.0
+    live = torch.from_numpy(np.clip(np.sqrt((x - 12) ** 2 + (y - 15) ** 2)
+                                    - 8.0, -tdist, tdist)).to(dev)
+    verts = rng.random((8 * n, 3)).astype(np.float32) * np.array(
+        shape, np.float32)
+    wf = construct_graph(torch.from_numpy(verts).to(dev), 2.0, 12 * n)
+    dqs = (rng.standard_normal((wf.capacity, 8)) * 0.03).astype(np.float32)
+    dqs[:, 0] += 1.0
+    wf = wf.replace(node_dq=torch.from_numpy(dqs).to(dev))
+    lw = torch.tensor(LW_REF, dtype=torch.float32, device=dev)
+    cand = brick_candidates_2level(wf, shape, 8, 16)
+    sel, selw, _ = build_warp_cache(wf, shape, cand, 3, 8)
+    k2_args = (live, wf.node_dq, cand, sel, selw, lw)
+    k2_kw = dict(brick=8, tdist=tdist, live_mip=live_brick_mip(live))
+    k3_args = (live, wf.node_pos, wf.node_w, wf.active, wf.node_dq, cand, lw)
+    n_neq = {}
+    for c in (True, False):
+        n_neq["K2", c] = n_not_equal(
+            warp_trilerp_bricks_cached(*k2_args, **k2_kw, coords=c),
+            warp_trilerp_bricks_cached_ref(*k2_args, **k2_kw))
+        n_neq["K3", c] = n_not_equal(
+            warp_trilerp_bricks(*k3_args, brick=8, k=3, coords=c),
+            warp_trilerp_bricks_ref(*k3_args, brick=8, k=3))
+    print(f"# ragged tail: lattice {shape}, NB {nb}, nodes "
+          f"{int(wf.num_active)}/{wf.capacity}; NB % grid "
+          f"{ {name: nb % gr for name, gr in grids.items()} }; voxels not "
+          f"bit-equal to the twins (kernel, coordinates) {n_neq}")
+    check(not any(n_neq.values()), f"ragged tail: not bit-equal {n_neq}")
 
 
 def phase_config4(torch, dev, canonical, live, wf):
@@ -640,6 +810,7 @@ def phase_config4(torch, dev, canonical, live, wf):
                                     use_kernels=use_kernels)
 
     warp_trilerp_bricks.launches = 0
+    warp_trilerp_bricks.coord_launches = 0
     f(True)
     torch.cuda.synchronize()
     times = []
@@ -651,6 +822,8 @@ def phase_config4(torch, dev, canonical, live, wf):
     launches = warp_trilerp_bricks.launches
     check(launches == 4, f"config 4: K3 launched {launches} times in 4 "
           "calls")
+    check(warp_trilerp_bricks.coord_launches == 0,
+          "config 4: the update's K3 wrote coordinates")
     pv, pw, _, p_risk = f(False)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(v).all() and torch.isfinite(w).all()),
@@ -663,7 +836,8 @@ def phase_config4(torch, dev, canonical, live, wf):
           f"pool_risk {int(risk)} (plain arm {int(p_risk)}); kernel vs plain "
           f"arm |dvalues| p99.9 {p_v:.3g} max {float(dv.max()):.3g}, "
           f"|dweights| p99.9 {p_w:.3g} max {float(dw.max()):.3g}; updated "
-          f"voxels {int(torch.sum(w > 0))}; launches K3 {launches}")
+          f"voxels {int(torch.sum(w > 0))}; launches K3 {launches}, of "
+          f"which with coordinates {warp_trilerp_bricks.coord_launches}")
     check(p_v < GATE_DEV_P999 and p_w < GATE_DEV_P999,
           f"config 4: kernel arm deviates (p99.9 {p_v}, {p_w})")
     return launches
@@ -968,15 +1142,14 @@ def phase_config7(torch, dev, verts, faces, depths0, lws):
     from dynamicfusion_body_tpu_torch.ops.trilerp_cuda import (
         warp_trilerp_bricks_cached)
     from dynamicfusion_body_tpu_torch.pipeline.fusion import Fusion, FusionDM
+    from dynamicfusion_body_tpu_torch.tools._scene import make_bend
     from dynamicfusion_body_tpu_torch.utils.profiling import PhaseTimer
 
-    sys.path.insert(0, str(ROOT / "benchmarks"))
-    from suite import _make_bend  # config 7's ground-truth bend
-
-    bend = _make_bend(verts)
+    bend = make_bend(verts)  # config 7's ground-truth bend
     kernels = (mc_case_cross, warp_trilerp_bricks_cached, fuse_depth_multi)
     for kern in kernels:
         kern.launches = 0
+    warp_trilerp_bricks_cached.coord_launches = 0
     t_start = time.perf_counter()
     dm = FusionDM(TDIST6, K6, tsdf_res=RES, vert_cap=1 << 17,
                   face_cap=1 << 18)
@@ -1042,6 +1215,8 @@ def phase_config7(torch, dev, verts, faces, depths0, lws):
           f"voxels at 256^3, to check, not a gate); launches {launches}")
     check(all(n > 0 for n in launches.values()),
           f"config 7 launches {launches}")
+    check(warp_trilerp_bricks_cached.coord_launches == 0,
+          "config 7: updateTSDF's K2 wrote coordinates")
     check(errs[-1] < untracked, f"config 7 tracking: error {errs[-1]} not "
           f"below the untracked {untracked}")
     return launches
@@ -1100,18 +1275,26 @@ def main() -> int:
                              "tools/profile_trilerp.py:142"),
     }
     total = dict.fromkeys(meta, 0)
+    info = print_kernel_info(torch)
+    grids = {f"K3 C<={C}": info["warp_trilerp_bricks", C]["grid"]
+             for C in K3_CANDIDATES}
+    grids["K2"] = info["warp_trilerp_bricks_cached", None]["grid"]
     rows["mc_case_cross"] = phase_k1(torch, dev)
     canonical, lives, wf = bench_state(torch, dev)
-    rows["warp_trilerp_bricks_cached"] = phase_k2(torch, dev, lives, wf)
+    rows["warp_trilerp_bricks_cached"] = phase_k2(torch, dev, lives, wf,
+                                                  grids["K2"])
     stamp("K1, K2")
-    rows["warp_trilerp_bricks"], coords = phase_k3(torch, dev, lives[1], wf)
+    rows["warp_trilerp_bricks"], coords = phase_k3(
+        torch, dev, lives[1], wf,
+        {C: info["warp_trilerp_bricks", C]["grid"] for C in K3_CANDIDATES})
     rows["trilerp_bricks"] = phase_k4(torch, lives[1], coords)
     del coords
     rows["trilerp_ablation"] = phase_k6(torch, dev)
     torch.cuda.empty_cache()
     stamp("K6")
     phase_padded(torch, dev)
-    stamp("K3, K4, padded lattice")
+    phase_ragged(torch, dev, grids)
+    stamp("K3, K4, padded lattice, ragged tail")
     total["warp_trilerp_bricks"] = phase_config4(torch, dev, canonical,
                                                  lives[1], wf)
     stamp("config 4")
@@ -1129,6 +1312,7 @@ def main() -> int:
 
     mc_case_cross.launches = 0
     warp_trilerp_bricks_cached.launches = 0
+    warp_trilerp_bricks_cached.coord_launches = 0
     torch.cuda.reset_peak_memory_stats()
     for _ in range(2):
         state, _ = run_frame(torch, fusion_frame, state, lives[0], hyper)
@@ -1139,12 +1323,15 @@ def main() -> int:
         times.append(ms)
     launches = (mc_case_cross.launches, warp_trilerp_bricks_cached.launches)
     check(all(n > 0 for n in launches), f"kernel launches {launches}")
+    check(warp_trilerp_bricks_cached.coord_launches == 0,
+          "the frame's K2 wrote coordinates")
     total["mc_case_cross"] += launches[0]
     total["warp_trilerp_bricks_cached"] += launches[1]
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     print(f"# timed frames (ms): {times}; median {np.median(times):.1f}; "
           f"peak device memory {peak_gb:.2f} GiB; launches K1 "
-          f"{launches[0]} K2 {launches[1]}")
+          f"{launches[0]} K2 {launches[1]}, of which with coordinates "
+          f"{warp_trilerp_bricks_cached.coord_launches}")
 
     plain_state, plain_ms = run_frame(
         torch, fusion_frame, prev, lives[3], dict(hyper, use_kernels=False))

@@ -315,7 +315,8 @@ def update_tsdf_nonrigid(
     on CUDA tensors the kernels, on CPU ones their twins: K2 with a
     ``warp_cache`` (with the mip certificate when the live volume has the
     canonical shape and ``mip_skip_supported`` holds), K3 without one (the
-    selection, its weights and ``wi`` computed per voxel in the kernel).
+    selection, its weights and ``wi`` computed per voxel in the kernel),
+    neither writing the warped coordinates, which nothing here reads.
     Without ``use_kernels`` the selection comes from ``warp_cache`` (built
     here when None). Both arms interpolate in f32 with ``_trilinear_c``'s
     formula, so the JAX update's near-threshold re-sample (after its
@@ -337,7 +338,7 @@ def update_tsdf_nonrigid(
         if warp_cache is None:
             tsdf_l, valid, wi, _, _, _ = warp_trilerp_bricks(
                 live, wf.node_pos, wf.node_w, wf.active, wf.node_dq, cand,
-                lw_dq, vol_shape=vol_shape, brick=brick, k=k)
+                lw_dq, vol_shape=vol_shape, brick=brick, k=k, coords=False)
         else:
             sel, selw, wi = warp_cache
             mip_ok = (mip_skip_supported(live.shape)
@@ -346,7 +347,7 @@ def update_tsdf_nonrigid(
                 live, wf.node_dq, cand, sel, selw, lw_dq, brick=brick,
                 tdist=float(tdist) if mip_ok else None,
                 live_mip=live_brick_mip(live) if mip_ok else None,
-                vol_shape=vol_shape,
+                vol_shape=vol_shape, coords=False,
             )
     else:
         if warp_cache is None:

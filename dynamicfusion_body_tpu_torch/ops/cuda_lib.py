@@ -38,25 +38,30 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_IP = ctypes.POINTER(ctypes.c_int)
 SIGNATURES = {
     # (vol, out, X, Y, Z, level, stream)
     "dfb_mc_case_cross": (_P, _P, _I, _I, _I, _F, _P),
     # (live, node_dq, cand, sel, selw, lw, mip_mn, mip_mx, use_mip,
-    #  tdist, rx, ry, rz, vy, vz, brick, NB, C, k,
-    #  vals, valid, wx, wy, wz, stream)
+    #  tdist, rx, ry, rz, vy, vz, brick, NB, C, k, M (nodes),
+    #  vals, valid, wx, wy, wz (all three null: no coordinates), stream)
     "dfb_warp_trilerp_cached": (
         _P, _P, _P, _P, _P, _P, _P, _P, _I,
-        _F, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+        _F, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
         _P, _P, _P, _P, _P, _P,
     ),
-    # (live, node_pos, node_w, active, node_dq, cand, lw,
-    #  rx, ry, rz, vy, vz, brick, NB, C, k,
-    #  vals, valid, wi, wx, wy, wz, stream)
+    # (live, node_pos, node_w, active (int32), node_dq, cand, lw,
+    #  rx, ry, rz, vy, vz, brick, NB, C, k, M (nodes),
+    #  vals, valid, wi, wx, wy, wz (all three null: no coordinates), stream)
     "dfb_warp_trilerp_bricks": (
         _P, _P, _P, _P, _P, _P, _P,
-        _I, _I, _I, _I, _I, _I, _I, _I, _I,
+        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
         _P, _P, _P, _P, _P, _P, _P,
     ),
+    # (brick, k, out[6]) and (C, out[6]): registers, local bytes, threads,
+    # CTAs per SM, persistent grid, dynamic shared bytes
+    "dfb_warp_trilerp_cached_info": (_I, _I, _IP),
+    "dfb_warp_trilerp_bricks_info": (_I, _IP),
     # (live, wx, wy, wz, n, rx, ry, rz, vals, valid, stream)
     "dfb_trilerp_bricks": (
         _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _P, _P, _P,

@@ -37,16 +37,24 @@ the TPU mechanisms become here:
 The canonical lattice ``vol_shape`` (which the caller may pad up to a
 multiple of the brick) sets the brick grid and the voxel centres; the
 live volume's own shape sets the in-volume test and the tap clamps, as in
-the JAX kernels and ``_trilinear_c``.
+the JAX kernels and ``_trilinear_c``. K2 and K3 write the warped
+coordinates only with ``coords=True`` (the default, for the tools and the
+tests); the TSDF update asks for none.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from . import cuda_lib
 from .compwise import dq_normalize8_c, dq_point_c
 from .interp import trilinear_c, trilinear_index
+
+# brick edges K2 and K3 take on the card: each thread owns a voxel pair,
+# 256 threads a brick of at most 512 voxels
+KERNEL_BRICKS = (2, 4, 6, 8)
 
 
 def _axis_windowred(v, axis, red):
@@ -160,9 +168,9 @@ def mip_short_bricks(wx, wy, wz, invol, shape, tdist: float, live_mip):
 
 def warp_trilerp_bricks_cached_ref(live, node_dq, cand, sel, selw, lw_dq,
                                    brick: int = 8, tdist=None, live_mip=None,
-                                   vol_shape=None):
+                                   vol_shape=None, coords: bool = True):
     """Plain PyTorch twin of K2: (vals, valid, wx, wy, wz), each (NB, V);
-    valid is bool."""
+    valid is bool; wx, wy, wz are None unless ``coords``."""
     vol_shape = tuple(live.shape) if vol_shape is None else tuple(vol_shape)
     wx, wy, wz = warp_voxels(node_dq, cand, sel, selw, lw_dq, vol_shape,
                              brick)
@@ -171,12 +179,15 @@ def warp_trilerp_bricks_cached_ref(live, node_dq, cand, sel, selw, lw_dq,
         short, cval = mip_short_bricks(wx, wy, wz, valid, live.shape, tdist,
                                        live_mip)
         vals = torch.where(short[:, None], cval[:, None], vals)
+    if not coords:
+        wx = wy = wz = None
     return vals, valid, wx, wy, wz
 
 
 def _check_lattice(name, live, vol_shape, brick, NB):
-    """The brick grid of ``vol_shape`` must hold NB bricks of one CTA each;
-    returns vol_shape as a tuple."""
+    """The brick grid of ``vol_shape`` must hold NB bricks of an edge the
+    kernels take, and ``live`` fewer than 2^31 cells; returns vol_shape as
+    a tuple."""
     vol_shape = tuple(live.shape) if vol_shape is None else tuple(vol_shape)
     if len(vol_shape) != 3 or live.dim() != 3:
         raise ValueError(f"{name}: live and vol_shape must be 3-D")
@@ -185,35 +196,56 @@ def _check_lattice(name, live, vol_shape, brick, NB):
             or NB != (vx // brick) * (vy // brick) * (vz // brick)):
         raise ValueError(f"{name}: brick grid of vol_shape {vol_shape} does "
                          f"not match NB={NB}")
-    if brick ** 3 > 1024:
-        raise ValueError(f"{name}: brick={brick} exceeds 1024 threads")
+    if brick not in KERNEL_BRICKS:
+        raise ValueError(f"{name}: brick={brick} is not one of "
+                         f"{KERNEL_BRICKS}")
+    if live.numel() >= 2 ** 31:
+        raise ValueError(f"{name}: live {tuple(live.shape)} has 2^31 cells "
+                         "or more (the taps take 32-bit offsets)")
     return vol_shape
 
 
-def _check_cand(name, cand, M):
-    if cand.numel() and (int(cand.min()) < 0 or int(cand.max()) >= M):
-        raise ValueError(f"{name}: cand holds node ids outside the node pool")
+def _aligned(t):
+    """``t`` itself when its data is 16-byte aligned, else a copy: the
+    kernels fetch rows with 16-byte asynchronous copies."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _coord_outputs(coords, shape, dev):
+    """K2's and K3's coordinate outputs: three (NB, V) f32 tensors, or
+    Nones (null pointers for the kernel) when not asked for."""
+    if not coords:
+        return (None,) * 3
+    return tuple(torch.empty(shape, dtype=torch.float32, device=dev)
+                 for _ in range(3))
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def warp_trilerp_bricks_cached(live, node_dq, cand, sel, selw, lw_dq,
                                brick: int = 8, tdist=None, live_mip=None,
-                               vol_shape=None):
+                               vol_shape=None, coords: bool = True):
     """K2: fused per-frame sample stage of the non-rigid TSDF update.
 
     live (rx, ry, rz) f32; ``vol_shape`` the canonical lattice (default
     ``live.shape``), whose ``vol_shape // brick`` grid holds the NB bricks;
-    node_dq (M, 8) f32; cand (NB, C) node ids; sel (NB, V) int32 packed
+    node_dq (M, 8) f32; cand (NB, C) node ids (the kernel clamps an id
+    outside [0, M) into it); sel (NB, V) int32 packed
     slots and selw (NB, k, V) f32 from ``build_warp_cache``; lw_dq (8,)
     f32. With ``tdist`` and ``live_mip`` (from :func:`live_brick_mip`)
     certified bricks emit exact constants; that needs ``vol_shape`` equal
-    to ``live.shape``. Returns (vals, valid, wx, wy, wz), each (NB, V).
+    to ``live.shape``. Returns (vals, valid, wx, wy, wz), each (NB, V);
+    without ``coords`` the kernel writes no coordinates and wx, wy, wz are
+    None. On the card ``brick`` is one of ``KERNEL_BRICKS``.
 
     A CPU tensor takes the plain twin; a CUDA tensor launches the kernel
     or raises."""
     if live.device.type == "cpu":
         return warp_trilerp_bricks_cached_ref(
             live, node_dq, cand, sel, selw, lw_dq, brick, tdist, live_mip,
-            vol_shape)
+            vol_shape, coords)
     if live.device.type != "cuda":
         raise ValueError(f"warp_trilerp_bricks_cached: device {live.device}")
     rx, ry, rz = live.shape
@@ -230,51 +262,54 @@ def warp_trilerp_bricks_cached(live, node_dq, cand, sel, selw, lw_dq,
                          f" do not match (NB={NB}, V={V})")
     if node_dq.shape != (M, 8) or lw_dq.shape != (8,):
         raise ValueError("node_dq must be (M, 8) and lw_dq (8,)")
-    _check_cand("warp_trilerp_bricks_cached", cand, M)
     use_mip = tdist is not None and live_mip is not None
-    if use_mip and not (mip_skip_supported(live.shape) and V % 32 == 0
+    if use_mip and not (mip_skip_supported(live.shape)
                         and vol_shape == tuple(live.shape)):
         raise ValueError(f"mip certificate needs mip_skip_supported "
-                         f"{tuple(live.shape)}, vol_shape {vol_shape} equal "
-                         f"to it and whole warps (brick={brick})")
+                         f"{tuple(live.shape)} and vol_shape {vol_shape} "
+                         "equal to it")
     dev = live.device
     f32 = torch.float32
     live_c = live.to(f32).contiguous()
-    dq_c = node_dq.to(f32).contiguous()
+    dq_c = _aligned(node_dq.to(f32).contiguous())
     cand_c = cand.to(torch.int32).contiguous()
-    sel_c = sel.to(torch.int32).contiguous()
-    selw_c = selw.to(f32).contiguous()
+    sel_c = _aligned(sel.to(torch.int32).contiguous())
+    selw_c = _aligned(selw.to(f32).contiguous())
     lw_c = lw_dq.to(f32).contiguous()
     if use_mip:
         mn, mx = (t.to(f32).contiguous() for t in live_mip)
     else:
         mn = mx = torch.zeros(1, dtype=f32, device=dev)
-    vals, wx, wy, wz = (torch.empty((NB, V), dtype=f32, device=dev)
-                        for _ in range(4))
+    vals = torch.empty((NB, V), dtype=f32, device=dev)
     valid = torch.empty((NB, V), dtype=torch.bool, device=dev)
+    wx, wy, wz = _coord_outputs(coords, (NB, V), dev)
     err = cuda_lib.lib().dfb_warp_trilerp_cached(
         live_c.data_ptr(), dq_c.data_ptr(), cand_c.data_ptr(),
         sel_c.data_ptr(), selw_c.data_ptr(), lw_c.data_ptr(),
         mn.data_ptr(), mx.data_ptr(), int(use_mip),
         float(tdist) if use_mip else 0.0, rx, ry, rz, vol_shape[1],
-        vol_shape[2], brick, NB, C, k,
-        vals.data_ptr(), valid.data_ptr(), wx.data_ptr(), wy.data_ptr(),
-        wz.data_ptr(), cuda_lib.stream_ptr(dev),
+        vol_shape[2], brick, NB, C, k, M,
+        vals.data_ptr(), valid.data_ptr(), _ptr(wx), _ptr(wy), _ptr(wz),
+        cuda_lib.stream_ptr(dev),
     )
     cuda_lib.check("warp_trilerp_bricks_cached", err)
     warp_trilerp_bricks_cached.launches += 1
+    warp_trilerp_bricks_cached.coord_launches += int(coords)
     return vals, valid, wx, wy, wz
 
 
 warp_trilerp_bricks_cached.launches = 0
+# the launches that wrote wx, wy, wz
+warp_trilerp_bricks_cached.coord_launches = 0
 
 
 def warp_trilerp_bricks_ref(live, node_pos, node_w, active, node_dq, cand,
-                            lw_dq, vol_shape=None, brick: int = 8, k: int = 3):
+                            lw_dq, vol_shape=None, brick: int = 8, k: int = 3,
+                            coords: bool = True):
     """Plain PyTorch twin of K3: ``build_warp_cache``'s selection (k argmin
     passes, first-min tie-break; needs C <= 32, k <= 6) followed by K2's
     twin without the mip certificate. Returns (vals, valid, wi, wx, wy,
-    wz), each (NB, V)."""
+    wz), each (NB, V); wx, wy, wz are None unless ``coords``."""
     # models/ imports this module; the selection lives there
     from ..models.warp_field import WarpField, build_warp_cache
 
@@ -284,12 +319,14 @@ def warp_trilerp_bricks_ref(live, node_pos, node_w, active, node_dq, cand,
                    active=active, radius=node_w.new_zeros(()))
     sel, selw, wi = build_warp_cache(wf, vol_shape, cand, k, brick)
     vals, valid, wx, wy, wz = warp_trilerp_bricks_cached_ref(
-        live, node_dq, cand, sel, selw, lw_dq, brick, vol_shape=vol_shape)
+        live, node_dq, cand, sel, selw, lw_dq, brick, vol_shape=vol_shape,
+        coords=coords)
     return vals, valid, wi, wx, wy, wz
 
 
 def warp_trilerp_bricks(live, node_pos, node_w, active, node_dq, cand,
-                        lw_dq, vol_shape=None, brick: int = 8, k: int = 3):
+                        lw_dq, vol_shape=None, brick: int = 8, k: int = 3,
+                        coords: bool = True):
     """K3: the sample stage of the non-rigid TSDF update without a warp
     cache — per voxel, the exact top-k of the brick's C candidate nodes
     (first-min tie-break), Gaussian weights, ``wi`` (mean distance), DQB
@@ -297,17 +334,20 @@ def warp_trilerp_bricks(live, node_pos, node_w, active, node_dq, cand,
 
     live (rx, ry, rz) f32; ``vol_shape`` the canonical lattice (default
     ``live.shape``); node_pos (M, 3), node_w (M,), active (M,) bool and
-    node_dq (M, 8): the WarpField's arrays; cand (NB, C) node ids, C <= 32;
-    lw_dq (8,); 1 <= k <= C. Returns (vals, valid, wi, wx, wy, wz), each
+    node_dq (M, 8): the WarpField's arrays; cand (NB, C) node ids, C <= 32
+    (the kernel clamps an id outside [0, M) into it); lw_dq (8,);
+    1 <= k <= min(C, 6). Returns (vals, valid, wi, wx, wy, wz), each
     (NB, V); valid (bool) is "inside the live volume" — the JAX kernel's
-    escape output has no counterpart.
+    escape output has no counterpart. Without ``coords`` the kernel writes
+    no coordinates and wx, wy, wz are None. On the card ``brick`` is one
+    of ``KERNEL_BRICKS``.
 
     A CPU tensor takes the plain twin; a CUDA tensor launches the kernel
     or raises."""
     if live.device.type == "cpu":
         return warp_trilerp_bricks_ref(live, node_pos, node_w, active,
                                        node_dq, cand, lw_dq, vol_shape,
-                                       brick, k)
+                                       brick, k, coords)
     if live.device.type != "cuda":
         raise ValueError(f"warp_trilerp_bricks: device {live.device}")
     rx, ry, rz = live.shape
@@ -316,34 +356,58 @@ def warp_trilerp_bricks(live, node_pos, node_w, active, node_dq, cand,
     M = node_dq.shape[0]
     vol_shape = _check_lattice("warp_trilerp_bricks", live, vol_shape, brick,
                                NB)
-    if not 1 <= C <= 32 or not 1 <= k <= C:
+    if not 1 <= C <= 32 or not 1 <= k <= min(C, 6):
         raise ValueError(f"warp_trilerp_bricks: unsupported C={C}, k={k}")
     if (tuple(node_pos.shape) != (M, 3) or tuple(node_w.shape) != (M,)
             or tuple(active.shape) != (M,) or tuple(node_dq.shape) != (M, 8)
             or tuple(lw_dq.shape) != (8,)):
         raise ValueError("warp_trilerp_bricks: node arrays must be (M, 3), "
                          "(M,), (M,), (M, 8) and lw_dq (8,)")
-    _check_cand("warp_trilerp_bricks", cand, M)
     dev = live.device
     f32 = torch.float32
     ins = [live.to(f32).contiguous(), node_pos.to(f32).contiguous(),
-           node_w.to(f32).contiguous(), active.to(torch.uint8).contiguous(),
-           node_dq.to(f32).contiguous(), cand.to(torch.int32).contiguous(),
-           lw_dq.to(f32).contiguous()]
-    vals, wi, wx, wy, wz = (torch.empty((NB, V), dtype=f32, device=dev)
-                            for _ in range(5))
+           node_w.to(f32).contiguous(), active.to(torch.int32).contiguous(),
+           _aligned(node_dq.to(f32).contiguous()),
+           cand.to(torch.int32).contiguous(), lw_dq.to(f32).contiguous()]
+    vals, wi = (torch.empty((NB, V), dtype=f32, device=dev)
+                for _ in range(2))
     valid = torch.empty((NB, V), dtype=torch.bool, device=dev)
+    wx, wy, wz = _coord_outputs(coords, (NB, V), dev)
     err = cuda_lib.lib().dfb_warp_trilerp_bricks(
         *(t.data_ptr() for t in ins), rx, ry, rz, vol_shape[1], vol_shape[2],
-        brick, NB, C, k, vals.data_ptr(), valid.data_ptr(), wi.data_ptr(),
-        wx.data_ptr(), wy.data_ptr(), wz.data_ptr(), cuda_lib.stream_ptr(dev),
+        brick, NB, C, k, M, vals.data_ptr(), valid.data_ptr(),
+        wi.data_ptr(), _ptr(wx), _ptr(wy), _ptr(wz), cuda_lib.stream_ptr(dev),
     )
     cuda_lib.check("warp_trilerp_bricks", err)
     warp_trilerp_bricks.launches += 1
+    warp_trilerp_bricks.coord_launches += int(coords)
     return vals, valid, wi, wx, wy, wz
 
 
 warp_trilerp_bricks.launches = 0
+# the launches that wrote wx, wy, wz
+warp_trilerp_bricks.coord_launches = 0
+
+
+def kernel_info(brick: int = 8, k: int = 3, C: int = 16) -> dict:
+    """What the card makes of K2 (at ``brick``, ``k``) and of the K3
+    instantiation that ``C`` candidates take: registers and local (spill)
+    bytes per thread, threads per CTA, CTAs per SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), the persistent
+    grid and the dynamic shared bytes. Needs the card."""
+    keys = ("registers", "local_bytes", "threads", "ctas_per_sm", "grid",
+            "dynamic_smem")
+    out = {}
+    for name, call in (
+            ("warp_trilerp_bricks_cached",
+             lambda buf: cuda_lib.lib().dfb_warp_trilerp_cached_info(
+                 brick, k, buf)),
+            ("warp_trilerp_bricks",
+             lambda buf: cuda_lib.lib().dfb_warp_trilerp_bricks_info(C, buf))):
+        buf = (ctypes.c_int * len(keys))()
+        cuda_lib.check(f"{name} info", call(buf))
+        out[name] = dict(zip(keys, buf))
+    return out
 
 
 def trilerp_bricks_supported(shape, brick: int = 8) -> bool:

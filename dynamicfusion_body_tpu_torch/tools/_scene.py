@@ -1,14 +1,15 @@
-"""The profiling tools' inputs, made from seeds: bench.py's scene (the
-bumpy canonical sphere, the live sphere of ``benchmarks/suite.py`` config
-4 and the 4096-node field of ``init_canonical``) and the JAX trilerp
-profiler's random samples. At ``res`` = 256 they are the JAX tools' own;
-a smaller ``res`` scales the spheres and the caps with it so that a CPU
-run at 32³ stays small."""
+"""The profiling tools' and the chip smoke's inputs, made from seeds:
+bench.py's scene (the bumpy canonical sphere, the live sphere of
+``benchmarks/suite.py`` config 4 and the 4096-node field of
+``init_canonical``), the JAX trilerp profiler's random samples, and config
+7's ground-truth bend. At ``res`` = 256 they are the JAX tools' own; a
+smaller ``res`` scales the spheres and the caps with it so that a CPU run
+at 32³ stays small. ``bumpy_sdf`` and ``make_bend`` are copies of
+``bench.py:bumpy_sdf`` and ``benchmarks/suite.py:_make_bend`` (numpy), so
+the port imports nothing of the JAX side."""
 
 from __future__ import annotations
 
-import sys
-from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
@@ -29,14 +30,44 @@ def cap(base: int, res: int, floor: int = 2048) -> int:
     return max(base * res * res // (256 * 256), floor)
 
 
-def bumpy(res: int, center, phase: float):
-    """bench.py's ``bumpy_sdf`` with the 256³ scene's centre, radius and
-    bump amplitude scaled to ``res``."""
-    root = str(Path(__file__).resolve().parents[2])  # bench.py's directory
-    if root not in sys.path:
-        sys.path.insert(0, root)
-    from bench import bumpy_sdf
+def bumpy_sdf(res, center, radius, amp, freq, phase=0.0):
+    """Sphere with angular bumps — a deformable body stand-in
+    (``bench.py:54-63``)."""
+    g = np.arange(res, dtype=np.float32)
+    x, y, z = np.meshgrid(g, g, g, indexing="ij")
+    dx, dy, dz = x - center[0], y - center[1], z - center[2]
+    r = np.sqrt(dx * dx + dy * dy + dz * dz) + 1e-6
+    theta = np.arccos(np.clip(dz / r, -1, 1))
+    phi = np.arctan2(dy, dx)
+    bump = amp * np.sin(freq * theta + phase) * np.cos(freq * phi + phase)
+    return (r - (radius + bump)).astype(np.float32)
 
+
+def make_bend(ref_verts):
+    """Analytic smooth bend about x through the centroid, blended by
+    height, with its parameters frozen from ``ref_verts`` so that it
+    applies to any points: config 7's ground truth
+    (``benchmarks/suite.py:319-338``). Returns ``bend(pts, angle)``."""
+    c = ref_verts.mean(0)
+    y = ref_verts[:, 1] - c[1]
+    h = (y.max() - y.min()) + 1e-6
+
+    def bend(pts, angle):
+        p = pts - c
+        t = 1.0 / (1.0 + np.exp(-8.0 * (p[:, 1] / h)))
+        ca, sa = np.cos(angle * t), np.sin(angle * t)
+        out = np.empty_like(p)
+        out[:, 0] = p[:, 0]
+        out[:, 1] = ca * p[:, 1] - sa * p[:, 2]
+        out[:, 2] = sa * p[:, 1] + ca * p[:, 2]
+        return (out + c).astype(np.float32)
+
+    return bend
+
+
+def bumpy(res: int, center, phase: float):
+    """:func:`bumpy_sdf` with the 256³ scene's centre, radius and bump
+    amplitude scaled to ``res``."""
     s = res / 256
     return bumpy_sdf(res, tuple(c * s for c in center), 70.0 * s, 4.0 * s,
                      3.0, phase)

@@ -7,16 +7,17 @@ volume:
 * ``update_full_cached_cand``: the update with cached brick candidates
   (K3 samples); ``build_warp_cache``; ``update_full_warp_cache``: the
   update with both caches (K2 samples, as the fused frame pays it);
-* K2 (``k2_cached``) and K3 (``k3_kernel``) alone. Their block is the
-  8³ brick, one CTA each, so the JAX group sweep has no counterpart
-  there; it stands for K4 on K3's coordinates instead: K4 itself
+* K2 (``k2_cached``) and K3 (``k3_kernel``) alone, with coordinates, and
+  K3 as the update calls it, without (``k3_no_coords``). Their CTAs walk
+  the bricks of a persistent grid, so the JAX group sweep has no
+  counterpart there; it stands for K4 on K3's coordinates instead: K4 itself
   (``trilerp_only_k4``) and K4's arithmetic in K6's ``full`` mode at 128,
   256 and 512 threads per block (``trilerp_only_t*``);
 * ``merge_running_average`` on K3's samples;
 * with no JAX counterpart, config 4's own call (``benchmarks/suite.py``
   config 4: ``update_tsdf_nonrigid`` with no caches and zero weights,
   ``config4_update``) and its three parts: ``config4_candidates``
-  (``brick_candidates_2level`` with the risk count), ``k3_kernel`` and
+  (``brick_candidates_2level`` with the risk count), ``k3_no_coords`` and
   ``config4_merge``; their sum is printed beside the whole.
 
     python -m dynamicfusion_body_tpu_torch.tools.profile_upd
@@ -75,12 +76,13 @@ def main(argv=None) -> dict:
         live, wf.node_dq, cand, wc[0], wc[1], lw, brick=BRICK,
         vol_shape=shape))
 
-    def k3():
+    def k3(coords=True):
         return warp_trilerp_bricks(live, wf.node_pos, wf.node_w, wf.active,
                                    wf.node_dq, cand, lw, vol_shape=shape,
-                                   brick=BRICK, k=KNN_K)
+                                   brick=BRICK, k=KNN_K, coords=coords)
 
     t("k3_kernel", k3)
+    t("k3_no_coords", lambda: k3(coords=False))
     tsdf_l, valid, wi, wx, wy, wz = k3()
     t("trilerp_only_k4", lambda: trilerp_bricks(live, wx, wy, wz))
     for threads in ABLATION_THREADS:
@@ -93,7 +95,7 @@ def main(argv=None) -> dict:
     t("config4_candidates", candidates)
     t("config4_merge", lambda: merge_running_average(
         values, zeros, tsdf_l, valid, wi, tdist, WMAX, BRICK))
-    parts = ("config4_candidates", "k3_kernel", "config4_merge")
+    parts = ("config4_candidates", "k3_no_coords", "config4_merge")
     for key in ("wall_ms", "event_ms"):
         if t.rows["config4_update"][key] is None:
             continue

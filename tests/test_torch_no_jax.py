@@ -1,5 +1,6 @@
-"""The port and chip_smoke.py import neither JAX nor the JAX package: the
-machine with the GPU has no JAX."""
+"""The port and chip_smoke.py import neither JAX nor the JAX package, nor
+the JAX side's scripts (bench.py, benchmarks/suite.py): the machine with
+the GPU has no JAX, and the port keeps its own copies of what it needs."""
 
 import subprocess
 import sys
@@ -13,10 +14,11 @@ import dynamicfusion_body_tpu_torch as pkg
 mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in mods:
     importlib.import_module(name)
-import bench, chip_smoke  # chip_smoke's own imports, and bench's bumpy_sdf
+import chip_smoke  # and chip_smoke's own imports
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax",
-                                    "dynamicfusion_body_tpu"))
+                                    "dynamicfusion_body_tpu", "bench",
+                                    "suite", "benchmarks"))
 assert len(mods) >= 46, mods
 assert not bad, bad
 print("ok")

@@ -4,18 +4,22 @@ its named rows with finite host times, and ``device_trace`` writes a
 trace and returns the profiler's averages, and a row's trace counts as
 whole only when nothing it launched is missing from it."""
 
+import importlib.util
 import json
 import math
 import os
+import re
+from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 from dynamicfusion_body_tpu_torch.ops.trilerp_cuda import (
     ABLATION_MODES, ABLATION_THREADS)
 from dynamicfusion_body_tpu_torch.tools import (
-    _timing, profile_frame, profile_mc, profile_solve, profile_trilerp,
-    profile_upd)
+    _scene, _timing, profile_frame, profile_mc, profile_solve,
+    profile_trilerp, profile_upd)
 from dynamicfusion_body_tpu_torch.utils.profiling import (
     BLOCK, DeviceTrace, device_trace)
 
@@ -30,9 +34,9 @@ ROWS = {
     profile_upd: [
         "update_full_cached_cand", "build_warp_cache",
         "update_full_warp_cache", "k2_cached", "k3_kernel",
-        "trilerp_only_k4", "trilerp_only_t128", "trilerp_only_t256",
-        "trilerp_only_t512", "merge_running_average", "config4_update",
-        "config4_candidates", "config4_merge"],
+        "k3_no_coords", "trilerp_only_k4", "trilerp_only_t128",
+        "trilerp_only_t256", "trilerp_only_t512", "merge_running_average",
+        "config4_update", "config4_candidates", "config4_merge"],
     profile_solve: ["corr_exact"] + [
         f"solve_gn{gn}_cg{cg}" for gn, cg in profile_solve.GRID],
     profile_frame: [
@@ -146,3 +150,50 @@ def test_tool_refuses_a_missing_card():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         profile_mc.main(["--res", "32", "--reps", "1"])
+
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def _jax_side_script(name, path):
+    """A script of the JAX side (numpy at import), loaded from its file."""
+    spec = importlib.util.spec_from_file_location(name, ROOT / path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_bumpy_sdf_copy_matches_bench(rng):
+    """tools/_scene.bumpy_sdf is bench.py's, value for value."""
+    bench = _jax_side_script("bench", "bench.py")
+    for _ in range(3):
+        res = int(rng.randint(8, 33))
+        args = (res, tuple(rng.rand(3) * res), float(rng.rand() * res / 2),
+                float(rng.rand() * 3), float(rng.randint(1, 5)),
+                float(rng.rand() * 2))
+        np.testing.assert_array_equal(_scene.bumpy_sdf(*args),
+                                      bench.bumpy_sdf(*args))
+
+
+def test_make_bend_copy_matches_suite(rng):
+    """tools/_scene.make_bend is benchmarks/suite.py's _make_bend, value
+    for value, on points other than the ones it was frozen from."""
+    suite = _jax_side_script("suite", "benchmarks/suite.py")
+    ref = (rng.randn(500, 3) * [0.3, 0.8, 0.2]).astype(np.float32)
+    pts = (rng.randn(2000, 3) * 0.5).astype(np.float32)
+    mine, theirs = _scene.make_bend(ref), suite._make_bend(ref)
+    for angle in (0.0, 0.08, 0.24, -1.0):
+        np.testing.assert_array_equal(mine(pts, angle), theirs(pts, angle))
+
+
+def test_port_kernel_names_are_cuda_symbols():
+    """Every kernel name the traced rows check against is a __global__
+    function of csrc/*.cu, so a renamed kernel cannot make every trace
+    look incomplete."""
+    csrc = Path(_timing.__file__).resolve().parent.parent / "csrc"
+    decl = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\("
+                      r"(?:[^()]|\([^()]*\))*\)\s+)?(\w+)\s*\(")
+    names = {m.group(1) for src in csrc.glob("*.cu")
+             for m in decl.finditer(src.read_text())}
+    assert len(names) == 6, names
+    assert set(_timing.PORT_KERNELS.values()) == names

@@ -152,6 +152,28 @@ def test_k2_twin_matches_pallas_interpret(rng):
     np.testing.assert_array_equal(tv[both], jv[both])
 
 
+@pytest.mark.parametrize("mip", [False, True])
+def test_k2_without_coords(rng, mip):
+    """coords=False: the same vals and valid as coords=True, and None in
+    the coordinates' places; the CPU wrapper is the twin either way."""
+    fx = mip_fixture(rng)
+    (cand, _), (sel, selw, _) = jax_caches(fx)
+    live = T(fx["live"])
+    args = (live, T(fx["wf"].node_dq), T(cand).long(), T(sel), T(selw),
+            T(fx["lw"]))
+    kw = dict(brick=8)
+    if mip:
+        kw.update(tdist=fx["tdist"], live_mip=TP.live_brick_mip(live))
+    full = TP.warp_trilerp_bricks_cached_ref(*args, **kw)
+    for fn in (TP.warp_trilerp_bricks_cached_ref,
+               TP.warp_trilerp_bricks_cached):
+        got = fn(*args, **kw, coords=False)
+        assert len(got) == 5 and all(c is None for c in got[2:])
+        assert torch.equal(got[0], full[0]) and torch.equal(got[1], full[1])
+    assert torch.equal(TP.warp_trilerp_bricks_cached(*args, **kw)[2],
+                       full[2])
+
+
 @pytest.mark.parametrize("with_pool", [False, True])
 def test_candidates_and_warp_cache_match_jax(rng, with_pool):
     shape = (32, 32, 32)

@@ -96,6 +96,60 @@ def test_k3_twin_is_cache_plus_k2_twin(rng):
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("fixture", [mip_fixture, tearing_fixture])
+def test_k3_without_coords(rng, fixture):
+    """coords=False: the same vals, valid and wi as coords=True, and None
+    in the coordinates' places; the CPU wrapper is the twin either way."""
+    fx = fixture(rng)
+    (cand, _), _ = jax_caches(fx)
+    args = (T(fx["live"]), *port_nodes(fx["wf"]), T(cand).long(),
+            T(fx["lw"]))
+    kw = dict(vol_shape=fx["shape"], brick=8, k=fx["k"])
+    full = TP.warp_trilerp_bricks_ref(*args, **kw)
+    for fn in (TP.warp_trilerp_bricks_ref, TP.warp_trilerp_bricks):
+        got = fn(*args, **kw, coords=False)
+        assert len(got) == 6 and all(c is None for c in got[3:])
+        for g, w in zip(got[:3], full[:3]):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("cached", [False, True])
+def test_update_asks_for_no_coordinates(rng, cached, monkeypatch):
+    """update_tsdf_nonrigid(use_kernels=True) calls K3 (no warp cache) or
+    K2 (with one) with coords=False: nothing on the update's path reads
+    the warped coordinates."""
+    fx = mip_fixture(rng)
+    (cand, risk), wc = jax_caches(fx)
+    seen = []
+    for name in ("warp_trilerp_bricks", "warp_trilerp_bricks_cached"):
+        def spy(*a, _real=getattr(TW, name), _name=name, **kw):
+            seen.append((_name, kw.get("coords", True)))
+            return _real(*a, **kw)
+        monkeypatch.setattr(TW, name, spy)
+    TW.update_tsdf_nonrigid(
+        *(T(fx[n]) for n in ("values", "weights", "live")),
+        to_port(fx["wf"]), T(fx["lw"]), k=fx["k"], tdist=fx["tdist"],
+        brick=8, n_candidates=fx["C"], use_kernels=True,
+        cand_cache=(T(cand).long(), T(risk)),
+        warp_cache=tuple(T(a) for a in wc) if cached else None)
+    want = "warp_trilerp_bricks_cached" if cached else "warp_trilerp_bricks"
+    assert seen == [(want, False)]
+
+
+def test_kernel_lattice_checks():
+    """The card's K2/K3 take even bricks of at most 512 voxels (a voxel
+    pair per thread, 256 threads) on a brick grid that matches NB."""
+    live = torch.zeros(16, 16, 32)
+    assert TP._check_lattice("k", live, None, 8, 16) == (16, 16, 32)
+    assert TP._check_lattice("k", live, (16, 16, 32), 4, 128) == (16, 16, 32)
+    for brick, nb in ((10, 1), (3, 1), (1, 8192), (16, 2)):
+        with pytest.raises(ValueError, match="brick"):
+            TP._check_lattice("k", live, (16, 16, 32) if brick != 10
+                              else (10, 10, 10), brick, nb)
+    with pytest.raises(ValueError, match="does not match"):
+        TP._check_lattice("k", live, None, 8, 15)
+
+
 def k4_inputs(rng):
     """tests/test_trilerp_pallas.py:15-31: brick-coherent samples of a
     white-noise 32³ volume, some outside it."""
