@@ -7,11 +7,14 @@ Run from the repository root on a machine with one CUDA GPU:
 
 Phases, each of which raises on failure (exit code 1):
   0. print the card, torch and CUDA versions; build the kernels from
-     ``dynamicfusion_body_tpu_torch/csrc`` with nvcc for sm_90a; print K2's
-     and each K3 instantiation's registers, spill bytes, CTAs per SM and
-     persistent grid (a spill fails);
-  1. K1 (mc_case_cross) against its plain twin at 256³, 128³ and an odd
-     shape — bit-equal;
+     ``dynamicfusion_body_tpu_torch/csrc`` with nvcc for sm_90a; print the
+     registers, spill bytes and CTAs per SM of K1's and K5's
+     instantiations, K2 and each K3 instantiation, and K2/K3's persistent
+     grids (a spill fails);
+  1. K1 (mc_case_cross) against its plain twin, bit-equal, on random
+     volumes at 256³ and 128³, the bench's 256³ canonical TSDF, its
+     stride-2 view (read where it lies: the call may allocate its output
+     only) and ragged shapes (37, 41, 53) and (2, 3, 5);
   2. K2 (warp_trilerp_bricks_cached) against its plain twin on the 256³
      bench state with perturbed node DQs and a clipped live TSDF, so that
      both mip-certified classes occur, with and without coordinates:
@@ -46,11 +49,16 @@ Phases, each of which raises on failure (exit code 1):
      the solve below TRACK_MAX); then one frame of the plain arm
      (use_kernels=False) from the state of the last timed frame: p99.9
      |Δtsdf| < 0.5 (bench gate 1);
-  8. K5 (fuse_depth_multi) against its plain twin at 256³ on the inputs of
-     benchmarks/suite.py config 6: meshes/original.obj rendered from 8 yaw
-     views at 512² by the port's render_depth, the grid from
-     estimate_alignment; from an empty volume and from a half-fused one
-     whose weights are near WMAX, so the running average and the clamp run;
+  8. K5 (fuse_depth_multi) against its plain twin, bit-equal, at 256³ on
+     the inputs of benchmarks/suite.py config 6: meshes/original.obj
+     rendered from 8 yaw views at 512² by the port's render_depth, the grid
+     from estimate_alignment; from an empty volume and from a half-fused
+     one whose weights are near WMAX, so the running average and the clamp
+     run; with one view; on a ragged 37x41x53 volume with 3 views; with a
+     camera inside the volume and with a view the volume only grazes. In
+     each the kernel's view cull equals fuse_cull_tiles; the share it
+     skips, the voxel-views by path and K5's issue time from its SASS are
+     printed;
   9. config 6 through FusionDM at 256³ (a warm call, timed calls and one
      profiled call of compute_live_tsdf, then marching_cubes): K5 and K1
      must have launched, and the vertices seen by >= 3 views must lie on
@@ -106,11 +114,6 @@ K6 = np.array([[400.0, 0, 256], [0, 400, 256], [0, 0, 1]], np.float32)
 N_VIEWS, IMG = 8, 512
 TDIST6 = 8.0 / RES * 1.3
 ICP_VIEWS = 3
-# K5 vs its twin: bit-equal expected (-fmad=false, IEEE division, the twin's
-# operation order); a weight may differ only where a near-threshold decision
-# flipped, and every other value within the JAX-vs-oracle tolerance
-K5_FLIP_MAX = 16
-K5_TOL_VAL = 2e-5
 # f32 operations per voxel of K2 (k = 3): blend 40 (8 + 2 x 16), normalize
 # 26 (squares and their sum 15, sqrt, compare, division, 8 scalings), two
 # dual-quaternion sandwiches with v's literal zeros and ones pruned, 69 each
@@ -129,10 +132,25 @@ K3_CANDIDATES = (8, 16, 32)
 # the global pose of benchmarks/suite.py config 4 and the Fusion driver
 LW_REF = (1.0, 0.0, 0.0, 0.0, 0.0, 0.1, 0.0, 0.0)
 ANGLES7 = (0.08, 0.16, 0.24)  # config 7's bends, rad
-# K5, per voxel and view: projection and bounds test 24 (u, v, pw: 18;
-# 2 divisions; 4 compares), in-bounds sample and signed distance 29, the
-# running-average update 7
-K5_OPS_VIEW, K5_OPS_INB, K5_OPS_UPD = 24, 29, 7
+# K5's f32 operations, an IEEE division counted as one (the bound's count):
+# per voxel and view, the projection u, v, pw 18 and the bounds test's 4
+# compares, and the divisions px, py; per in-image voxel-view, the sample
+# and the signed distance 29; per update, 6 and the running average's
+# division
+K5_OPS_VIEW, K5_DIVS_VIEW, K5_OPS_INB = 22, 2, 29
+K5_OPS_UPD, K5_DIVS_UPD = 6, 1
+# K5's issue slots, counted by hand in `cuobjdump -sass` of
+# fuse_depth_multi_kernel<true> (the 16-byte instantiation, `length`
+# instructions; divisions on their fast path, the slow-path calls not
+# taken): the instructions one lane issues for one voxel-view that leaves
+# at the px test (projection of u and pw, division, test: 21), at the py
+# test (37), that is in the image (83: taps, sample, the signed-distance
+# block, 11, which a missing depth skips), the more an update takes (17);
+# and
+# per (x-plane, view) of a lane's run of 4 voxels, the view loop with the
+# row's prefix (25) or for a culled view (12)
+K5_SASS = dict(length=1416, out_x=21, out_y=37, in_view=83, update=17,
+               view=25, culled=12, signed_distance=11)
 
 
 class SmokeFailure(RuntimeError):
@@ -146,11 +164,14 @@ def check(cond, msg):
 
 def cuda_ms(torch, fn, reps=10):
     """Mean device time of ``fn`` in ms over ``reps`` launches (CUDA
-    events), after one warm-up call."""
+    events), after one warm-up call. The card first sleeps ~2 ms, so the
+    host has queued the launches before the first event: a call shorter
+    than its own host overhead is timed on the card, not on the host."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(4_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -178,9 +199,11 @@ def issue_ms(nops):
 
 
 def print_kernel_info(torch):
-    """K2's and each K3 instantiation's registers, local (spill) bytes,
-    CTAs per SM (occupancy calculator) and persistent grid; fails on a
-    spill. Returns {(name, C): info}."""
+    """K1's, K2's, each K3 instantiation's and K5's registers, local
+    (spill) bytes and CTAs per SM (occupancy calculator), and the
+    persistent grids of K2/K3; fails on a spill. Returns {(name, C): info}
+    for K2 and K3."""
+    from dynamicfusion_body_tpu_torch.ops import fusion_cuda, mc_cuda
     from dynamicfusion_body_tpu_torch.ops.trilerp_cuda import kernel_info
 
     out = {}
@@ -198,31 +221,74 @@ def print_kernel_info(torch):
               f"{info['grid']} on {sms} SMs, dynamic shared "
               f"{info['dynamic_smem']} B")
         check(info["local_bytes"] == 0, f"{name} spills: {info}")
+    for name, infos, smem in (
+            ("mc_case_cross", mc_cuda.kernel_info(), "static_smem"),
+            ("fuse_depth_multi", fusion_cuda.kernel_info(N_VIEWS),
+             "dynamic_smem")):
+        for inst, info in infos.items():
+            occ = info["ctas_per_sm"] * info["threads"] / 2048
+            print(f"# {name} {inst}: registers {info['registers']}, local "
+                  f"bytes {info['local_bytes']}, {info['threads']} threads, "
+                  f"CTAs per SM {info['ctas_per_sm']} ({occ:.1%} of the "
+                  f"SM's threads), shared {info[smem]} B"
+                  + (f" at {N_VIEWS} views" if name == "fuse_depth_multi"
+                     else ""))
+            check(info["local_bytes"] == 0, f"{name} {inst} spills: {info}")
     return out
 
 
-def phase_k1(torch, dev):
+def phase_k1(torch, dev, canonical):
+    """K1 against its twin: random volumes at 256³ and 128³, the bench's
+    256³ canonical TSDF and its stride-2 view (the canonical MC's call,
+    which the kernel reads where it lies: the call allocates its output
+    and nothing else), and ragged shapes (Z % 4 != 0, extents of 2).
+    Returns the kernel-table row (random 256³, the live MC's shape)."""
     from dynamicfusion_body_tpu_torch.ops.mc_cuda import (
         mc_case_cross, mc_case_cross_ref)
 
     rng = np.random.default_rng(1)
-    row = None
-    for shape in ((RES,) * 3, (RES // 2,) * 3, (37, 41, 53)):
-        vol = torch.from_numpy(
+
+    def rand(shape):
+        return torch.from_numpy(
             rng.standard_normal(shape).astype(np.float32)).to(dev)
+
+    stride2 = canonical[::2, ::2, ::2]
+    row = None
+    for name, vol in (("random", rand((RES,) * 3)),
+                      ("random", rand((RES // 2,) * 3)),
+                      ("bench TSDF", canonical),
+                      ("bench TSDF [::2, ::2, ::2]", stride2),
+                      ("random", rand((37, 41, 53))),
+                      ("random", rand((2, 3, 5)))):
         got = mc_case_cross(vol, 0.0)
         want = mc_case_cross_ref(vol, 0.0)
         err = float(torch.max(torch.abs(got - want)))
-        check(err == 0.0, f"K1 differs from its twin at {shape} by {err}")
+        check(err == 0.0, f"K1 differs from its twin on {name} "
+              f"{tuple(vol.shape)} by {err}")
         ms = cuda_ms(torch, lambda: mc_case_cross(vol, 0.0))
         plain = cuda_ms(torch, lambda: mc_case_cross_ref(vol, 0.0))
-        print(f"# K1 {shape}: bit-equal; kernel {ms:.4f} ms, twin "
-              f"{plain:.4f} ms")
+        print(f"# K1 {name} {tuple(vol.shape)} strides {vol.stride()}: "
+              f"bit-equal; kernel {ms:.4f} ms, twin {plain:.4f} ms")
         if row is None:  # the live MC shape of the main path
             # each cell: its voxel read, its word written; 8 f32 compares
             row = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                        **bound(8 * vol.numel(), 8 * vol.numel()),
                        library_ms=None)
+    # the stride-2 call allocates its output only (a .contiguous() copy of
+    # the view would allocate as much again)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = mc_case_cross(stride2, 0.0)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    out_bytes = out.numel() * out.element_size()
+    check(extra < 2 * out_bytes, f"the stride-2 K1 call allocated {extra} B "
+          f"for a {out_bytes} B output: a copy of its input?")
+    copy_ms = cuda_ms(torch, lambda: mc_case_cross(stride2.contiguous(), 0.0))
+    print(f"# K1 stride-2 call allocated {extra} B ({out_bytes} B output); "
+          f"with a .contiguous() copy first (the wrapper's former call): "
+          f"{copy_ms:.4f} ms")
     return row
 
 
@@ -499,32 +565,42 @@ def phase_k4(torch, live, coords):
     return row
 
 
-def sass_loads(torch):
-    """Global loads (LDG instructions) of each K6 instantiation in the
-    built library's SASS, by (mode, threads). The toolkit that builds the
-    kernels ships cuobjdump; a machine without it fails the check."""
+def sass_functions(torch):
+    """The built library's SASS by function: {mangled name: [instruction
+    text]}. The toolkit that builds the kernels ships cuobjdump; a machine
+    without it fails the check."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     from dynamicfusion_body_tpu_torch.ops import cuda_lib
-    from dynamicfusion_body_tpu_torch.ops.trilerp_cuda import ABLATION_MODES
 
     tool = Path(CUDA_HOME or "/usr/local/cuda") / "bin" / "cuobjdump"
-    check(tool.exists(), f"no {tool} to read K6's SASS")
-    sass = subprocess.run([str(tool), "-sass", str(cuda_lib.library_path())],
+    check(tool.exists(), f"no {tool} to read the kernels' SASS")
+    text = subprocess.run([str(tool), "-sass", str(cuda_lib.library_path())],
                           capture_output=True, text=True, timeout=300,
                           check=True).stdout
-    counts, cur = {}, None
-    for line in sass.splitlines():
+    funcs, cur = {}, None
+    for line in text.splitlines():
         fn = re.search(r"Function : (\S+)", line)
         if fn:
-            m = re.search(r"trilerp_ablation_kernelILi(\d)ELi(\d+)E",
-                          fn.group(1))
-            cur = (ABLATION_MODES[int(m.group(1))], int(m.group(2))) if m \
-                else None
-            if cur:
-                counts[cur] = 0
-        elif cur and "LDG" in line:
-            counts[cur] += 1
+            cur = funcs.setdefault(fn.group(1), [])
+            continue
+        ins = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.+?)\s*;", line)
+        if cur is not None and ins:
+            cur.append(ins.group(1))
+    return funcs
+
+
+def sass_loads(torch):
+    """Global loads (LDG instructions) of each K6 instantiation in the
+    built library's SASS, by (mode, threads)."""
+    from dynamicfusion_body_tpu_torch.ops.trilerp_cuda import ABLATION_MODES
+
+    counts = {}
+    for name, code in sass_functions(torch).items():
+        m = re.search(r"trilerp_ablation_kernelILi(\d)ELi(\d+)E", name)
+        if m:
+            counts[(ABLATION_MODES[int(m.group(1))], int(m.group(2)))] = sum(
+                "LDG" in ins for ins in code)
     return counts
 
 
@@ -927,9 +1003,61 @@ def render_views(torch, dev, verts, faces):
     return torch.stack(depths), np.stack(lws)
 
 
-def phase_k5(torch, dev, depths, lws):
+def k5_projs(lws, ind, K=K6):
+    """K·lw·IND per view in numpy float32, as FusionDM._proj."""
+    out = []
+    for lw in lws:
+        lw4 = np.eye(4, dtype=np.float32)
+        lw4[:3] = lw
+        out.append(K @ lw4[:3] @ ind)
+    return np.stack(out).astype(np.float32)
+
+
+def k5_case(torch, name, v0, w0, depths, projs, kr):
+    """One K5 call against its twin: values and weights bit-equal, and the
+    kernel's cull map equal to fuse_cull_tiles. Returns (max |Δ|, the
+    kernel's weights, the culled (view, tile) pairs)."""
     from dynamicfusion_body_tpu_torch.ops.fusion_cuda import (
-        fuse_depth_multi, fuse_depth_multi_ref)
+        cull_grid, fuse_cull_tiles, fuse_depth_multi, fuse_depth_multi_ref)
+
+    n, h, w = depths.shape
+    cull = torch.empty((n, *cull_grid(v0.shape)), dtype=torch.uint8,
+                       device=v0.device)
+    gv, gw = fuse_depth_multi(v0, w0, depths, projs, kr, TDIST6,
+                              cull_map=cull)
+    rv, rw = fuse_depth_multi_ref(v0, w0, depths, projs, kr, TDIST6)
+    pred = fuse_cull_tiles(v0.shape, projs, h, w)
+    torch.cuda.synchronize()
+    n_flip = int(torch.sum(gw != rw))
+    err = max(float(torch.max(torch.abs(gv - rv))),
+              float(torch.max(torch.abs(gw - rw))))
+    bit = n_flip == 0 and torch.equal(gv, rv)
+    n_map = int(torch.sum(cull.bool() != pred))
+    print(f"# K5 {name}, {tuple(v0.shape)} x {n} views: "
+          f"{'bit-equal' if bit else 'NOT bit-equal'} (weights differ at "
+          f"{n_flip} voxels, max |d| {err:.3g}); updated voxels "
+          f"{int(torch.sum(gw != w0))}, max weight {float(gw.max())}; the "
+          f"cull skips {float(pred.float().mean()):.2%} of {pred.numel()} "
+          f"(tile, view) pairs, the kernel's map "
+          f"{'equals' if n_map == 0 else f'differs at {n_map} from'} "
+          f"fuse_cull_tiles")
+    check(bit, f"K5 {name}: not bit-equal to its twin ({n_flip} weights, "
+          f"max |d| {err})")
+    check(n_map == 0, f"K5 {name}: the kernel culled other (tile, view) "
+          f"pairs than fuse_cull_tiles ({n_map})")
+    return err, gw, pred
+
+
+def phase_k5(torch, dev, depths, lws):
+    """K5 against its twin on config 6's renders: 256³ x 8 views from an
+    empty volume and from a half-fused one whose weights are near WMAX (so
+    the running average and the clamp run); one view (the ICP branch's
+    call); a ragged 37x41x53 volume with 3 views; a camera inside the
+    volume (pw changes sign across tiles); a view whose image the volume
+    only grazes. Times the 8-view call and splits its voxel-views by the
+    path they take in the kernel, for the bound and the issue time."""
+    from dynamicfusion_body_tpu_torch.ops.fusion_cuda import (
+        CULL_TILE, fuse_depth_multi, fuse_depth_multi_ref)
     from dynamicfusion_body_tpu_torch.ops.projection import (
         estimate_alignment, make_ind_matrix)
 
@@ -937,66 +1065,173 @@ def phase_k5(torch, dev, depths, lws):
     avg, std = estimate_alignment(depths, torch.from_numpy(kinv).to(dev),
                                   torch.from_numpy(lws).to(dev))
     ind = make_ind_matrix(RES, avg, std).cpu().numpy()
-    projs_np = []
-    for lw in lws:  # K·lw·IND in numpy float32, as FusionDM._proj
-        lw4 = np.eye(4, dtype=np.float32)
-        lw4[:3] = lw
-        projs_np.append(K6 @ lw4[:3] @ ind)
-    projs = torch.from_numpy(np.stack(projs_np)).to(dev)
+    projs = torch.from_numpy(k5_projs(lws, ind)).to(dev)
     kr = torch.from_numpy(kinv[2]).to(dev)
-    empty = (torch.full((RES,) * 3, TDIST6, device=dev),
-             torch.zeros((RES,) * 3, device=dev))
+
+    def blank(shape):
+        return (torch.full(shape, TDIST6, device=dev),
+                torch.zeros(shape, device=dev))
+
+    empty = blank((RES,) * 3)
     half_v, half_w = fuse_depth_multi_ref(*empty, depths[:4], projs[:4], kr,
                                           TDIST6)
     half = (half_v, torch.where(half_w > 0, half_w + 95.0, half_w))
     err = 0.0
     for name, (v0, w0) in (("empty", empty), ("half-fused", half)):
-        gv, gw = fuse_depth_multi(v0, w0, depths, projs, kr, TDIST6)
-        rv, rw = fuse_depth_multi_ref(v0, w0, depths, projs, kr, TDIST6)
-        torch.cuda.synchronize()
-        flip = gw != rw
-        n_flip = int(torch.sum(flip))
-        err_v = float(torch.max(torch.abs(torch.where(flip, 0.0, gv - rv))))
-        bit = n_flip == 0 and torch.equal(gv, rv)
-        err = max(err, float(torch.max(torch.abs(gv - rv))),
-                  float(torch.max(torch.abs(gw - rw))))
-        print(f"# K5 {RES}^3 x {N_VIEWS} views from {name}: "
-              f"{'bit-equal' if bit else 'NOT bit-equal'}; weights differ "
-              f"at {n_flip} voxels, values elsewhere by {err_v:.3g}; max "
-              f"weight {float(gw.max())}; updated voxels "
-              f"{int(torch.sum(gw != w0))}")
-        check(n_flip <= K5_FLIP_MAX and err_v <= K5_TOL_VAL,
-              f"K5 differs from its twin from {name}: {n_flip} weights, "
-              f"values by {err_v}")
+        e, gw, pred = k5_case(torch, f"config 6 from {name}", v0, w0,
+                              depths, projs, kr)
+        err = max(err, e)
         if name == "empty":
             n_upd = float(torch.sum(gw - w0))  # no clamp from empty
+            cull6 = pred
         else:
             check(float(gw.max()) == 100.0, "the WMAX clamp did not run")
+    k5_case(torch, "one view (the ICP call)", *empty, depths[:1], projs[:1],
+            kr)
+    ragged = (37, 41, 53)
+    ind_r = make_ind_matrix(max(ragged), avg, std).cpu().numpy()
+    k5_case(torch, "ragged", *blank(ragged), depths[:3],
+            torch.from_numpy(k5_projs(lws[:3], ind_r)).to(dev), kr)
+    # view 0 turned about a centre at the volume's centre
+    centre = avg.cpu().numpy().astype(np.float64)
+    R = lws[0][:, :3].astype(np.float64)
+    inside = np.concatenate([R, (-R @ centre)[:, None]], 1)
+    k5_case(torch, "camera inside the volume", *empty, depths[:1],
+            torch.from_numpy(k5_projs([inside], ind)).to(dev), kr)
+    # view 0 with its principal point moved so that the volume's image
+    # (its corners', the camera being outside) ends a tenth inside the
+    # image's left border
+    corners = np.array([[i, j, k, 1.0] for i in (0, RES - 1)
+                        for j in (0, RES - 1) for k in (0, RES - 1)])
+    uvw = corners @ projs[0].cpu().numpy().astype(np.float64).T
+    px = uvw[:, 0] / uvw[:, 2]
+    check(bool((uvw[:, 2] > 0).all()), "view 0 sees the volume from behind")
+    graze = K6.copy()
+    graze[0, 2] += 0.1 * (px.max() - px.min()) - px.max()
+    k5_case(torch, "grazing the image's left border", *empty, depths[:1],
+            torch.from_numpy(k5_projs(lws[:1], ind, graze)).to(dev), kr)
+
     ms = cuda_ms(torch, lambda: fuse_depth_multi(*empty, depths, projs, kr,
                                                  TDIST6))
     plain = cuda_ms(torch, lambda: fuse_depth_multi_ref(*empty, depths,
                                                         projs, kr, TDIST6),
                     reps=3)
-    # this run's in-bounds voxel-views, for the operation count
+    # this run's voxel-views by path: in a culled (tile, view) pair; out of
+    # the image at the px test; at the py test; in the image
     g = [torch.arange(RES, dtype=torch.float32, device=dev).reshape(sh)
          for sh in ((-1, 1, 1), (1, -1, 1), (1, 1, -1))]
-    n_inb = 0
-    for p in projs:
+    n_cull = n_x = n_y = n_inb = 0
+    warp_ins = 0  # warp instructions, a block issued where any lane takes it
+    for view, p in enumerate(projs):
+        culled = cull6[view]
+        for axis, t in enumerate(CULL_TILE):
+            culled = culled.repeat_interleave(t, dim=axis)
+        culled = culled[:RES, :RES, :RES]
         u, v, pw = (p[r, 0] * g[0] + p[r, 1] * g[1] + p[r, 2] * g[2]
                     + p[r, 3] for r in range(3))
         px, py = u / pw, v / pw
-        n_inb += int(torch.sum((px >= 0) & (py >= 0) & (px < IMG - 1)
-                               & (py < IMG - 1)))
+        ok_x = (px >= 0) & (px < IMG - 1)
+        ok_y = (py >= 0) & (py < IMG - 1)
+        n_cull += int(torch.sum(culled))
+        n_x += int(torch.sum(~culled & ~ok_x))
+        n_y += int(torch.sum(~culled & ok_x & ~ok_y))
+        n_inb += int(torch.sum(ok_x & ok_y))
+        check(not bool(torch.any(culled & ok_x & ok_y)),
+              f"K5 culled an in-image voxel-view of view {view}")
+        warp_ins += k5_warp_instructions(torch, culled, ok_x, ok_x & ok_y,
+                                         px, py, u, v, pw, depths[view], kr)
+        del u, v, pw, px, py, ok_x, ok_y, culled
     nvox = RES ** 3
     nbytes = 16 * nvox + 4 * (depths.numel() + projs.numel() + 3)
-    nops = nvox * N_VIEWS * K5_OPS_VIEW + n_inb * K5_OPS_INB + n_upd * K5_OPS_UPD
+    nops = (nvox * N_VIEWS * (K5_OPS_VIEW + K5_DIVS_VIEW)
+            + n_inb * K5_OPS_INB + n_upd * (K5_OPS_UPD + K5_DIVS_UPD))
     row = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                **bound(nbytes, nops), library_ms=None)
-    print(f"# K5 kernel {ms:.4f} ms, twin {plain:.4f} ms; in-bounds "
-          f"voxel-views {n_inb}, updates {int(n_upd)}; bound "
-          f"{row['bound_ms']:.4f} ms ({row['bound_by']}; bytes "
-          f"{nbytes / HBM_BPS * 1e3:.4f} ms, ops {nops / F32_OPS * 1e3:.4f} ms)")
+    total = nvox * N_VIEWS
+    print(f"# K5 kernel {ms:.4f} ms, twin {plain:.4f} ms; voxel-views "
+          f"{total}: in culled (tile, view) pairs {n_cull} "
+          f"({n_cull / total:.2%}; pairs {float(cull6.float().mean()):.2%}),"
+          f" out of the image at px {n_x}, at py {n_y}, in the image "
+          f"{n_inb}, updates {int(n_upd)}; bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']}; bytes {nbytes / HBM_BPS * 1e3:.4f} ms, ops "
+          f"{nops / F32_OPS * 1e3:.4f} ms)")
+    k5_issue(torch, ms, n_x, n_y, n_inb, n_upd, n_cull, total)
+    print(f"# K5 warp issue time {issue_ms(32 * warp_ins):.4f} ms "
+          f"({warp_ins / 1e9:.3f} G warp instructions at one a clock on "
+          f"each of the 528 schedulers, a block counted for a warp where "
+          f"any of its lanes takes it); kernel {ms:.4f} ms, "
+          f"{issue_ms(32 * warp_ins) / ms:.1%} of it")
     return row
+
+
+def k5_warp_instructions(torch, culled, ok_x, img, px, py, u, v, pw, depth,
+                         kr):
+    """The warp instructions K5 issues for one view at 256³ from K5_SASS's
+    blocks, grouped as the kernel's warps run: one step of a warp is one
+    x-plane and one position r of the lanes' runs, its 32 lanes 4 y-rows
+    by 8 runs of 4 z-voxels; a block is issued when any lane takes it. The
+    signed-distance block runs where the sample pz > tdist, the update
+    where dz < tdist (fuse_depth's tests, here in PyTorch)."""
+    pxc, pyc = torch.where(img, px, 0.0), torch.where(img, py, 0.0)
+    x0, y0 = torch.floor(pxc).long(), torch.floor(pyc).long()
+    wx, wy = pxc - x0.float(), pyc - y0.float()
+    d = depth.reshape(-1)
+    w = depth.shape[1]
+    up = d[y0 * w + x0] * (1 - wx) + d[y0 * w + x0 + 1] * wx
+    bot = d[(y0 + 1) * w + x0] * (1 - wx) + d[(y0 + 1) * w + x0 + 1] * wx
+    pz = -(up * (1 - wy) + bot * wy)
+    dz_open = -(kr[0] * (px * pz - u) + kr[1] * (py * pz - v)
+                + kr[2] * (pz - pw))
+    opened = img & (pz > TDIST6)
+    upd = img & (torch.where(opened, dz_open, -TDIST6) < TDIST6)
+
+    def steps(flag):  # warp steps in which any lane's voxel takes it
+        X, Y, Z = flag.shape
+        return int(torch.sum(flag.reshape(X, Y // 4, 4, Z // 32, 8, 4)
+                             .any(4).any(2)))
+
+    live = ~culled
+    n_steps = steps(live)
+    runs = culled.numel() // 128  # a warp's (x-plane, view) runs
+    culled_runs = runs - n_steps // 4
+    return (n_steps * K5_SASS["out_x"]
+            + steps(ok_x & live) * (K5_SASS["out_y"] - K5_SASS["out_x"])
+            + steps(img) * (K5_SASS["in_view"] - K5_SASS["out_y"]
+                            - K5_SASS["signed_distance"])
+            + steps(opened) * K5_SASS["signed_distance"]
+            + steps(upd) * K5_SASS["update"]
+            + (n_steps // 4) * K5_SASS["view"]
+            + culled_runs * K5_SASS["culled"])
+
+
+def k5_issue(torch, ms, n_x, n_y, n_inb, n_upd, n_cull, total):
+    """K5's issue time from the SASS counts of its per-view paths
+    (K5_SASS) over this run's voxel-views, beside the kernel's time; and
+    the kernel's SASS size and opcode mix, so a stale count shows."""
+    funcs = sass_functions(torch)
+    body = [ins for name, code in funcs.items()
+            if "fuse_depth_multi_kernelILb1E" in name for ins in code]
+    check(body, "no SASS for fuse_depth_multi_kernel<true>")
+    ops = {}
+    for ins in body:
+        op = ins.split()[1 if ins.startswith("@") else 0].split(".")[0]
+        ops[op] = ops.get(op, 0) + 1
+    top = ", ".join(f"{op} {n}" for op, n in
+                    sorted(ops.items(), key=lambda kv: -kv[1])[:12])
+    stale = len(body) != K5_SASS["length"]
+    print(f"# K5 SASS (16-byte instantiation): {len(body)} instructions"
+          f"{' (K5_SASS was counted on ' + str(K5_SASS['length']) + ': stale)' if stale else ''}; "
+          f"{top}")
+    n = (n_x * K5_SASS["out_x"] + n_y * K5_SASS["out_y"]
+         + n_inb * K5_SASS["in_view"] + n_upd * K5_SASS["update"]
+         + (total - n_cull) / 4 * K5_SASS["view"]
+         + n_cull / 4 * K5_SASS["culled"])
+    print(f"# K5 issue time {issue_ms(n):.4f} ms ({n / 1e9:.3f} G lane "
+          f"instructions: {K5_SASS['out_x']} out at px, {K5_SASS['out_y']} "
+          f"out at py, {K5_SASS['in_view']} in the image, "
+          f"+{K5_SASS['update']} an update, {K5_SASS['view']} a run's view "
+          f"and {K5_SASS['culled']} a culled one); kernel {ms:.4f} ms, "
+          f"{issue_ms(n) / ms:.1%} of it")
 
 
 def profile_ingest(torch, fus, maps, lws):
@@ -1279,8 +1514,8 @@ def main() -> int:
     grids = {f"K3 C<={C}": info["warp_trilerp_bricks", C]["grid"]
              for C in K3_CANDIDATES}
     grids["K2"] = info["warp_trilerp_bricks_cached", None]["grid"]
-    rows["mc_case_cross"] = phase_k1(torch, dev)
     canonical, lives, wf = bench_state(torch, dev)
+    rows["mc_case_cross"] = phase_k1(torch, dev, canonical)
     rows["warp_trilerp_bricks_cached"] = phase_k2(torch, dev, lives, wf,
                                                   grids["K2"])
     stamp("K1, K2")

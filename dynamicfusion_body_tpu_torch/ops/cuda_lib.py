@@ -40,8 +40,13 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _IP = ctypes.POINTER(ctypes.c_int)
 SIGNATURES = {
-    # (vol, out, X, Y, Z, level, stream)
-    "dfb_mc_case_cross": (_P, _P, _I, _I, _I, _F, _P),
+    # (vol, out, X, Y, Z, vol's element strides x/y/z, 1 if the storage
+    #  holds an element past the view's last one, level, stream)
+    "dfb_mc_case_cross": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    # (instantiation, out[6]) and (vec, n_views, out[6]): registers, local
+    # bytes, threads, CTAs per SM, shared bytes, 0
+    "dfb_mc_case_cross_info": (_I, _IP),
+    "dfb_fuse_depth_multi_info": (_I, _I, _IP),
     # (live, node_dq, cand, sel, selw, lw, mip_mn, mip_mx, use_mip,
     #  tdist, rx, ry, rz, vy, vz, brick, NB, C, k, M (nodes),
     #  vals, valid, wx, wy, wz (all three null: no coordinates), stream)
@@ -71,10 +76,10 @@ SIGNATURES = {
         _I, _I, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _P, _P,
     ),
     # (vals, wts, depths, projs, kinv_row2, n_views, h, w, X, Y, Z,
-    #  tdist, wmax, vals_out, wts_out, stream)
+    #  tdist, wmax, vals_out, wts_out, cull_out (null: none), stream)
     "dfb_fuse_depth_multi": (
         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-        _F, _F, _P, _P, _P,
+        _F, _F, _P, _P, _P, _P,
     ),
 }
 

@@ -9,9 +9,16 @@ layout, static sampling window (``fuse_window_for``), escape count and
 shape gate (``fuse_depth_multi_supported``) have no counterpart: the
 kernel samples the depth maps from global memory, so no sample can leave
 a window and there is nothing to fall back to.
+
+The kernel culls views per warp tile of ``CULL_TILE`` voxels with a
+predicate that is provably conservative (``csrc/fuse_depth_multi.cu:
+cull_views``); :func:`fuse_cull_tiles` is that predicate in PyTorch, for the
+tests and the smoke's count of what it skips.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -22,6 +29,12 @@ from . import cuda_lib
 # dynamic shared memory a launch gets without an opt-in
 SMEM_BYTES = 48 * 1024
 MAX_VIEWS = (SMEM_BYTES // 4 - 3) // 12  # 1023
+# the kernel's index math is 32-bit
+MAX_ELEMENTS = 2**31 - 1
+# a warp's tile (x, y, z): the unit of the view cull
+CULL_TILE = (8, 4, 32)
+# csrc/fuse_depth_multi.cu:kRoundMargin, 8 x 2^-24
+ROUND_MARGIN = 2.0**-21
 
 
 def fuse_depth_multi_ref(values, weights, depths, projs, kinv_row2,
@@ -55,19 +68,88 @@ def check_args(values, weights, depths, projs, kinv_row2) -> None:
         raise ValueError(f"fuse_depth_multi: projs {tuple(projs.shape)} must "
                          f"be ({n},3,4) and kinv_row2 "
                          f"{tuple(kinv_row2.shape)} (3,)")
+    if max(values.numel(), depths.numel()) > MAX_ELEMENTS:
+        raise ValueError(f"fuse_depth_multi: {values.numel()} voxels or "
+                         f"{depths.numel()} depth pixels: the kernel indexes "
+                         f"at most {MAX_ELEMENTS} with 32 bits")
+
+
+def cull_grid(shape) -> tuple:
+    """The number of warp tiles along each axis of an (X,Y,Z) volume."""
+    return tuple(-(-int(n) // t) for n, t in zip(shape, CULL_TILE))
+
+
+def fuse_cull_tiles(shape, projs, h: int, w: int) -> torch.Tensor:
+    """(n_views, *cull_grid(shape)) bool: True where the kernel's cull skips
+    the view for that warp tile, because no voxel of the tile can pass the
+    twin's image test (``csrc/fuse_depth_multi.cu:cull_views`` has the proof).
+
+    The same float64 operations in the same order as the kernel's, on
+    ``projs``' device. Used by the tests and the smoke; the fusion path
+    does not call it."""
+    dev = projs.device
+    f64 = torch.float64
+
+    def ends(n, t, view):  # each tile's first and last index, clipped
+        lo = torch.arange(0, n, t, device=dev, dtype=f64)
+        return (lo.reshape(view),
+                torch.clamp(lo + (t - 1), max=n - 1).reshape(view))
+
+    (x0, x1), (y0, y1), (z0, z1) = (
+        ends(int(n), t, v) for n, t, v in zip(
+            shape, CULL_TILE, ((1, -1, 1, 1), (1, 1, -1, 1), (1, 1, 1, -1))))
+    p = projs.to(f64)
+
+    def q(r, c):
+        return p[:, r, c].reshape(-1, 1, 1, 1)
+
+    e = [(((q(r, 0).abs() * x1 + q(r, 1).abs() * y1) + q(r, 2).abs() * z1)
+          + q(r, 3).abs()) * ROUND_MARGIN for r in range(3)]
+    eg = (e[0] + e[2], e[0] + w * e[2], e[1] + e[2], e[1] + h * e[2])
+    wmin = wmax = None
+    gmin, gmax = [None] * 4, [None] * 4
+    for c in range(8):
+        x, y, z = (x1 if c & 1 else x0), (y1 if c & 2 else y0), \
+            (z1 if c & 4 else z0)
+        t = [((q(r, 0) * x + q(r, 1) * y) + q(r, 2) * z) + q(r, 3)
+             for r in range(3)]
+        g = (t[0] + t[2], w * t[2] - t[0], t[1] + t[2], h * t[2] - t[1])
+        wmin = t[2] if wmin is None else torch.minimum(wmin, t[2])
+        wmax = t[2] if wmax is None else torch.maximum(wmax, t[2])
+        for a in range(4):
+            gmin[a] = g[a] if c == 0 else torch.minimum(gmin[a], g[a])
+            gmax[a] = g[a] if c == 0 else torch.maximum(gmax[a], g[a])
+    front = (gmax[0] < -eg[0]) | (gmax[1] < -eg[1]) | (gmax[2] < -eg[2]) \
+        | (gmax[3] < -eg[3])
+    back = (gmin[0] > eg[0]) | (gmin[1] > eg[1]) | (gmin[2] > eg[2]) \
+        | (gmin[3] > eg[3])
+    return torch.where(wmin > e[2], front, (wmax < -e[2]) & back)
 
 
 def fuse_depth_multi(values, weights, depths, projs, kinv_row2,
-                     tdist: float, wmax: float = 100.0):
+                     tdist: float, wmax: float = 100.0, cull_map=None):
     """Fuse ``n`` depth maps into a TSDF in one pass.
 
     values/weights (X,Y,Z) f32; depths (n,H,W) f32 negative-depth maps;
     projs (n,3,4) f32 = K·lw·IND; kinv_row2 (3,) f32, row 2 of K⁻¹.
-    Returns new (values, weights).
+    Returns new (values, weights). ``cull_map``, a uint8 tensor of shape
+    (n, *cull_grid(values.shape)) on the volume's device, receives 1 where
+    the view was culled for that warp tile (the fusion path passes none).
 
-    A CPU tensor takes the plain twin; a CUDA tensor launches the kernel
-    (strided views are made contiguous first) or raises."""
+    A CPU tensor takes the plain twin (and ``cull_map`` the PyTorch
+    predicate); a CUDA tensor launches the kernel (strided views are made
+    contiguous first) or raises."""
+    if cull_map is not None:
+        n, h, w = depths.shape
+        want = (n, *cull_grid(values.shape))
+        if (tuple(cull_map.shape) != want or cull_map.dtype != torch.uint8
+                or cull_map.device != values.device
+                or not cull_map.is_contiguous()):
+            raise ValueError(f"fuse_depth_multi: cull_map must be a "
+                             f"contiguous uint8 {want} on {values.device}")
     if values.device.type == "cpu":
+        if cull_map is not None:
+            cull_map.copy_(fuse_cull_tiles(values.shape, projs, h, w))
         return fuse_depth_multi_ref(values, weights, depths, projs,
                                     kinv_row2, tdist, wmax)
     if values.device.type != "cuda":
@@ -83,6 +165,7 @@ def fuse_depth_multi(values, weights, depths, projs, kinv_row2,
         vals_c.data_ptr(), wts_c.data_ptr(), dep_c.data_ptr(),
         proj_c.data_ptr(), kr_c.data_ptr(), n, h, w, X, Y, Z, float(tdist),
         float(wmax), out_v.data_ptr(), out_w.data_ptr(),
+        None if cull_map is None else cull_map.data_ptr(),
         cuda_lib.stream_ptr(values.device),
     )
     cuda_lib.check("fuse_depth_multi", err)
@@ -91,3 +174,21 @@ def fuse_depth_multi(values, weights, depths, projs, kinv_row2,
 
 
 fuse_depth_multi.launches = 0
+
+
+def kernel_info(n_views: int = 8) -> dict:
+    """What the card makes of K5's two instantiations (``vec``: 16-byte
+    loads where Z % 4 == 0; ``scalar``: any Z): registers and local (spill)
+    bytes per thread, threads per CTA, CTAs per SM at ``n_views`` views
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and the dynamic
+    shared bytes that takes. Needs the card."""
+    keys = ("registers", "local_bytes", "threads", "ctas_per_sm",
+            "dynamic_smem", "grid")
+    out = {}
+    for name, vec in (("vec", 1), ("scalar", 0)):
+        buf = (ctypes.c_int * len(keys))()
+        cuda_lib.check("fuse_depth_multi info",
+                       cuda_lib.lib().dfb_fuse_depth_multi_info(
+                           vec, n_views, buf))
+        out[name] = dict(zip(keys, buf))
+    return out

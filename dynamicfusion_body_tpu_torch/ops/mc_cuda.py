@@ -8,10 +8,14 @@ One int32 per lattice cell of an (X,Y,Z) volume:
     bit 8/9/10  x/y/z edge-crossing flag, 0 on the last plane of its axis
 
 The TPU kernel's shape gate (``mc_frontend_supported``: Z % 128 lanes,
-Y % 8 sublanes) has no counterpart: the CUDA kernel takes any X,Y,Z >= 2.
+Y % 8 sublanes) has no counterpart: the CUDA kernel takes any X,Y,Z >= 2
+and any element strides (the stride-2 extraction hands it
+``vol[::2, ::2, ::2]`` as it lies), as long as its offsets fit 32 bits.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -49,26 +53,49 @@ def mc_case_cross_ref(vol: torch.Tensor, level: float) -> torch.Tensor:
     return code | (cross_x << 8) | (cross_y << 9) | (cross_z << 10)
 
 
-def mc_case_cross(vol: torch.Tensor, level: float) -> torch.Tensor:
-    """(X,Y,Z) f32 → (X,Y,Z) int32 case/crossing lattice.
+# the kernel's index math is 32-bit
+MAX_OFFSET = 2**31 - 1
 
-    A CPU tensor takes the plain twin; a CUDA tensor launches the kernel
-    (a strided view is made contiguous first) or raises."""
-    if vol.device.type == "cpu":
-        return mc_case_cross_ref(vol, level)
-    if vol.device.type != "cuda":
-        raise ValueError(f"mc_case_cross: unsupported device {vol.device}")
+
+def check_args(vol: torch.Tensor) -> int:
+    """Raise ValueError unless the kernel takes ``vol``: an (X,Y,Z) float32
+    volume, every extent >= 2, whose cells and whose largest element
+    offset (through its strides) fit 32-bit indices. Returns that
+    offset."""
     if vol.dtype != torch.float32 or vol.dim() != 3 or min(vol.shape) < 2:
         raise ValueError(
             f"mc_case_cross: need a (X,Y,Z) float32 volume with every extent"
             f" >= 2, got {tuple(vol.shape)} {vol.dtype}"
         )
-    vol = vol.contiguous()
+    last = sum((n - 1) * s for n, s in zip(vol.shape, vol.stride()))
+    if vol.numel() > MAX_OFFSET or last + 1 > MAX_OFFSET:
+        raise ValueError(
+            f"mc_case_cross: {tuple(vol.shape)} with strides {vol.stride()} "
+            f"reaches element {last}: the kernel indexes at most "
+            f"{MAX_OFFSET} with 32 bits")
+    return last
+
+
+def mc_case_cross(vol: torch.Tensor, level: float) -> torch.Tensor:
+    """(X,Y,Z) f32 → (X,Y,Z) int32 case/crossing lattice.
+
+    A CPU tensor takes the plain twin; a CUDA tensor launches the kernel,
+    which reads a strided view where it lies, or raises."""
+    if vol.device.type == "cpu":
+        return mc_case_cross_ref(vol, level)
+    if vol.device.type != "cuda":
+        raise ValueError(f"mc_case_cross: unsupported device {vol.device}")
+    last = check_args(vol)
     out = torch.empty(vol.shape, dtype=torch.int32, device=vol.device)
     X, Y, Z = vol.shape
+    strides = vol.stride()
+    # does the storage hold an element past the view's last one (the
+    # stride-2 loads read it)
+    tail = int(strides[2] == 2 and vol.untyped_storage().nbytes()
+               > (vol.storage_offset() + last + 1) * vol.element_size())
     err = cuda_lib.lib().dfb_mc_case_cross(
-        vol.data_ptr(), out.data_ptr(), X, Y, Z, float(level),
-        cuda_lib.stream_ptr(vol.device),
+        vol.data_ptr(), out.data_ptr(), X, Y, Z, *strides, tail,
+        float(level), cuda_lib.stream_ptr(vol.device),
     )
     cuda_lib.check("mc_case_cross", err)
     mc_case_cross.launches += 1
@@ -76,3 +103,25 @@ def mc_case_cross(vol: torch.Tensor, level: float) -> torch.Tensor:
 
 
 mc_case_cross.launches = 0
+
+
+# K1's instantiations, in the order of csrc/mc_case_cross.cu:Mode
+KERNELS = ("vec4", "stride2", "scalar")
+
+
+def kernel_info() -> dict:
+    """What the card makes of each of K1's instantiations (``vec4``:
+    16-byte loads and stores; ``stride2``: two 16-byte loads a run of the
+    stride-2 view; ``scalar``: element loads and stores): registers and
+    local (spill) bytes per thread, threads per CTA, CTAs per SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and static shared
+    bytes. Needs the card."""
+    keys = ("registers", "local_bytes", "threads", "ctas_per_sm",
+            "static_smem", "grid")
+    out = {}
+    for which, name in enumerate(KERNELS):
+        buf = (ctypes.c_int * len(keys))()
+        cuda_lib.check("mc_case_cross info",
+                       cuda_lib.lib().dfb_mc_case_cross_info(which, buf))
+        out[name] = dict(zip(keys, buf))
+    return out

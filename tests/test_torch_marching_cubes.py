@@ -10,7 +10,7 @@ from dynamicfusion_body_tpu.ops.marching_cubes import marching_cubes as j_mc
 from dynamicfusion_body_tpu.ops.mc_pallas import mc_case_cross as j_k1
 from dynamicfusion_body_tpu_torch.ops.marching_cubes import marching_cubes
 from dynamicfusion_body_tpu_torch.ops.mc_cuda import (
-    mc_case_cross, mc_case_cross_ref)
+    MAX_OFFSET, check_args, mc_case_cross, mc_case_cross_ref)
 
 # One intra-op thread: with torch 2.13's CPU build on x86-64 (AVX-512),
 # worker threads intermittently returned f32 sqrt results ~3e-4 off for
@@ -80,3 +80,32 @@ def test_marching_cubes_matches_jax(rng, case, use_kernels):
                                    atol=1e-5, err_msg=key)
     if case == "saturated":
         assert int(got["n_verts"]) == 64 and bool(got["overflow"])
+
+
+def test_k1_on_a_stride2_view_matches_pallas(rng):
+    """The canonical MC's call: K1 (its twin on the CPU) on the stride-2
+    view as it lies, against the Pallas kernel on the subsampled copy."""
+    vol = rng.randn(32, 16, 256).astype(np.float32)
+    view = torch.from_numpy(vol)[::2, ::2, ::2]
+    assert not view.is_contiguous()
+    want = np.asarray(j_k1(jnp.asarray(np.ascontiguousarray(
+        vol[::2, ::2, ::2])), 0.0, interpret=True))
+    np.testing.assert_array_equal(mc_case_cross(view, 0.0).numpy(), want)
+
+
+@pytest.mark.parametrize("case", ["stride2", "offset", "cells"])
+def test_mc_case_cross_index_limit(case):
+    """The kernel's 32-bit offsets: a view is taken where its largest
+    element offset, one past it (the stride-2 loads read it) and its cell
+    count fit; meta tensors, so nothing is allocated."""
+    if case == "stride2":  # the 256³ canonical's stride-2 view
+        view = torch.empty((256,) * 3, device="meta")[::2, ::2, ::2]
+        assert check_args(view) == 254 * (65536 + 256 + 1)
+        return
+    if case == "offset":  # few cells, one far apart
+        vol = torch.empty_strided((2, 2, 2), (MAX_OFFSET, 1, 1),
+                                  device="meta")
+    else:  # 2^31 cells
+        vol = torch.empty((2, 1024, 1 << 20), device="meta")
+    with pytest.raises(ValueError, match="32 bits"):
+        check_args(vol)

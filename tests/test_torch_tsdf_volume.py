@@ -21,7 +21,8 @@ from dynamicfusion_body_tpu.ops.dualquat import dq_normalize8 as j_norm8
 from dynamicfusion_body_tpu.ops.fusion_pallas import fuse_depth_multi_bricks
 from dynamicfusion_body_tpu_torch.models import tsdf_volume as TT
 from dynamicfusion_body_tpu_torch.ops.fusion_cuda import (
-    MAX_VIEWS, SMEM_BYTES, check_args, fuse_depth_multi, fuse_depth_multi_ref)
+    MAX_ELEMENTS, MAX_VIEWS, SMEM_BYTES, check_args, fuse_depth_multi,
+    fuse_depth_multi_ref)
 
 # One intra-op thread (see tests/test_torch_marching_cubes.py)
 torch.set_num_threads(1)
@@ -254,6 +255,23 @@ def test_fuse_depth_multi_view_limit(n_views):
         check_args(*args)
     else:
         with pytest.raises(ValueError, match="views, need"):
+            check_args(*args)
+
+
+@pytest.mark.parametrize("case", ["fits", "volume", "depths"])
+def test_fuse_depth_multi_index_limit(case):
+    """The kernel's 32-bit offsets: a volume or a depth stack of 2^31
+    elements is refused (meta tensors, so nothing is allocated)."""
+    big = (2, 1024, 1 << 20)
+    assert 2 * 1024 * (1 << 20) == MAX_ELEMENTS + 1
+    vol = torch.zeros(big if case == "volume" else (4, 4, 4), device="meta")
+    dep = torch.zeros(big if case == "depths" else (2, 2, 2), device="meta")
+    args = (vol, vol, dep, torch.zeros((dep.shape[0], 3, 4), device="meta"),
+            torch.zeros(3, device="meta"))
+    if case == "fits":
+        check_args(*args)
+    else:
+        with pytest.raises(ValueError, match="32 bits"):
             check_args(*args)
 
 
