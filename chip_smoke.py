@@ -8,9 +8,9 @@ Run from the repository root on a machine with one CUDA GPU:
 Phases, each of which raises on failure (exit code 1):
   0. print the card, torch and CUDA versions; build the kernels from
      ``dynamicfusion_body_tpu_torch/csrc`` with nvcc for sm_90a; print the
-     registers, spill bytes and CTAs per SM of K1's and K5's
-     instantiations, K2 and each K3 instantiation, and K2/K3's persistent
-     grids (a spill fails);
+     registers, spill bytes and CTAs per SM of K1's, K5's and K6's
+     instantiations, K2 and each K3 instantiation, and K2/K3's and K6's
+     persistent grids (a spill fails);
   1. K1 (mc_case_cross) against its plain twin, bit-equal, on random
      volumes at 256³ and 128³, the bench's 256³ canonical TSDF, its
      stride-2 view (read where it lies: the call may allocate its output
@@ -28,11 +28,19 @@ Phases, each of which raises on failure (exit code 1):
   4. K4 (trilerp_bricks) at K3's coordinates: bit-equal to its twin in the
      volume; timed beside grid_sample. K4's path is the profiling tools
      (phase 12), as in the JAX package;
-  4b. K6 (trilerp_ablation) at the trilerp profiler's 256³ shapes (16.8 M
-     random samples): each mode at 256 threads bit-equal to its twin, and
-     the full mode bit-equal to K4's values; the SASS of every
-     instantiation keeps its global loads (the loads and full modes 8
-     more than the weights mode: the taps); timed beside the bounds;
+  4b. K6 (trilerp_ablation) in each mode at 128/256/512 threads on the
+     trilerp profiler's 256³ rows (16.8 M random samples, every row's box
+     staged in shared memory), K3's coordinates from phase 3, rows spread
+     over and past the volume (taps from global memory), a prime row count
+     that leaves every persistent grid a partial last round, a 1-D input
+     with a short last row, and a ragged 37x41x53 volume with rows of 37
+     (the threads' copies, where the copy engine cannot): bit-equal to its
+     twin, the full mode to K4's values, the kernel's row map (loads,
+     full) equal to trilerp_box_rows, both paths run; the SASS keeps the
+     taps (at least 8 shared and 8 global loads more in loads and full
+     than in weights), the boxes' tensor copies (none in weights) and the
+     coordinates' bulk copies; each mode and K4 timed on the profiler's
+     rows beside the twin, grid_sample, the bound and the sector floor;
   5. K2 and K3 on a 72³ canonical lattice over a 65³ live volume (with
      and without coordinates, bit-equal), and the update's kernel arm
      against its plain arm there; then both on a lattice whose brick count
@@ -199,12 +207,13 @@ def issue_ms(nops):
 
 
 def print_kernel_info(torch):
-    """K1's, K2's, each K3 instantiation's and K5's registers, local
+    """K1's, K2's, each K3 instantiation's, K5's and K6's registers, local
     (spill) bytes and CTAs per SM (occupancy calculator), and the
-    persistent grids of K2/K3; fails on a spill. Returns {(name, C): info}
-    for K2 and K3."""
+    persistent grids of K2/K3 and K6; fails on a spill. Returns {(name,
+    C): info} for K2 and K3."""
     from dynamicfusion_body_tpu_torch.ops import fusion_cuda, mc_cuda
-    from dynamicfusion_body_tpu_torch.ops.trilerp_cuda import kernel_info
+    from dynamicfusion_body_tpu_torch.ops.trilerp_cuda import (
+        ablation_kernel_info, kernel_info)
 
     out = {}
     for C in K3_CANDIDATES:
@@ -224,6 +233,9 @@ def print_kernel_info(torch):
     for name, infos, smem in (
             ("mc_case_cross", mc_cuda.kernel_info(), "static_smem"),
             ("fuse_depth_multi", fusion_cuda.kernel_info(N_VIEWS),
+             "dynamic_smem"),
+            ("trilerp_ablation", {f"{m} t{t}": i for (m, t), i in
+                                  ablation_kernel_info().items()},
              "dynamic_smem")):
         for inst, info in infos.items():
             occ = info["ctas_per_sm"] * info["threads"] / 2048
@@ -231,8 +243,9 @@ def print_kernel_info(torch):
                   f"bytes {info['local_bytes']}, {info['threads']} threads, "
                   f"CTAs per SM {info['ctas_per_sm']} ({occ:.1%} of the "
                   f"SM's threads), shared {info[smem]} B"
-                  + (f" at {N_VIEWS} views" if name == "fuse_depth_multi"
-                     else ""))
+                  + {"fuse_depth_multi": f" at {N_VIEWS} views",
+                     "trilerp_ablation": " at rows of 512, persistent grid "
+                     f"{info['grid']}"}.get(name, ""))
             check(info["local_bytes"] == 0, f"{name} {inst} spills: {info}")
     return out
 
@@ -590,79 +603,176 @@ def sass_functions(torch):
     return funcs
 
 
+def sass_opcode(ins):
+    """The opcode of one SASS instruction, without its predicate and
+    modifiers ("@!P0 LDG.E.CONSTANT R2, ..." -> "LDG")."""
+    words = ins.split()
+    if words and words[0].startswith("@"):
+        words = words[1:]
+    return words[0].split(".")[0] if words else ""
+
+
 def sass_loads(torch):
-    """Global loads (LDG instructions) of each K6 instantiation in the
-    built library's SASS, by (mode, threads)."""
+    """Loads and copies of each K6 instantiation in the built library's
+    SASS, by (mode, threads): {"LDG": global loads, "LDS": shared loads,
+    "UBLKCP": bulk copies, "UTMALDG": tensor copies}."""
     from dynamicfusion_body_tpu_torch.ops.trilerp_cuda import ABLATION_MODES
 
     counts = {}
     for name, code in sass_functions(torch).items():
         m = re.search(r"trilerp_ablation_kernelILi(\d)ELi(\d+)E", name)
         if m:
-            counts[(ABLATION_MODES[int(m.group(1))], int(m.group(2)))] = sum(
-                "LDG" in ins for ins in code)
+            ops = [sass_opcode(ins) for ins in code]
+            counts[(ABLATION_MODES[int(m.group(1))], int(m.group(2)))] = {
+                op: ops.count(op)
+                for op in ("LDG", "LDS", "UBLKCP", "UTMALDG")}
     return counts
 
 
-def phase_k6(torch, dev):
-    """K6 at the trilerp profiler's shapes (tools/profile_trilerp.py's
-    random 256³ live volume and 16.8 M samples): each mode at each block
-    size bit-equal to its twin, the full mode bit-equal to K4's values; the
-    SASS keeps every load (the loads and full modes read the 8 taps on
-    top of the weights mode's 3 coordinates); each mode timed at 256
-    threads beside its twin and its bound, grid_sample beside the full
-    mode."""
-    from dynamicfusion_body_tpu_torch.ops.trilerp_cuda import (
-        ABLATION_MODES, ABLATION_THREADS, trilerp_ablation,
-        trilerp_ablation_ref, trilerp_bricks)
+def k6_cases(torch, dev, k3_live, k3_coords, grids):
+    """Phase 4b's inputs, [(name, live, (wx, wy, wz))]: the trilerp
+    profiler's 256³ rows; K3's coordinates at config 4 (phase 3), rows of
+    512; rows spread over the whole volume and past it (the global-tap
+    path); a prime row count, above every persistent grid in ``grids``,
+    half tool rows and half spread ones, so the last round of every grid
+    is partial; a 1-D input of both kinds whose last row is short; and a
+    ragged volume with rows of 37, where the threads copy the boxes and
+    the coordinates."""
     from dynamicfusion_body_tpu_torch.tools._scene import trilerp_inputs
+
+    live, *tool = trilerp_inputs(RES, dev)
+    rng = np.random.RandomState(7)
+    spread = [torch.from_numpy(a).to(dev) for a in rng.uniform(
+        -8.0, RES + 8.0, (3, 4096, 512)).astype(np.float32)]
+    rows = 4099  # prime
+    check(all(rows > g for g in grids.values()),
+          f"K6's ragged case needs more rows than the grids {grids}")
+    ragged = [torch.cat([t[:rows // 2], s[:rows - rows // 2]])
+              for t, s in zip(tool, spread)]
+    n_1d = 900 * 512 - 200
+    flat = [torch.cat([t[:600].reshape(-1), s[:300].reshape(-1)])[:n_1d]
+            for t, s in zip(tool, spread)]
+    # a ragged 37x41x53 volume (no TMA tensor: rz * 4 is not a multiple of
+    # 16) with rows of 37 samples (not whole 16-byte chunks): the threads
+    # copy the boxes and the coordinates; a quarter of the rows spread
+    shape_r = (37, 41, 53)
+    live_r = torch.from_numpy(rng.rand(*shape_r).astype(np.float32)).to(dev)
+    ext = np.array(shape_r, np.float32)
+    w_r = (rng.rand(2000, 1, 3) * (ext - 9) + rng.rand(2000, 37, 3) * 7)
+    w_r[::4] = rng.uniform(-3.0, 1.0, (500, 37, 3)) * (ext + 6) / 4 + ext / 2
+    ragged_vol = tuple(torch.from_numpy(np.ascontiguousarray(
+        w_r[..., a].astype(np.float32))).to(dev) for a in range(3))
+    return [(f"tool rows {RES}^3", live, tuple(tool)),
+            ("K3's coordinates", k3_live,
+             tuple(c.reshape(-1, 512) for c in k3_coords)),
+            ("spread rows", live, tuple(spread)),
+            (f"{rows} rows (ragged grid)", live, tuple(ragged)),
+            (f"1-D, {n_1d} samples", live, tuple(flat)),
+            ("37x41x53 volume, rows of 37", live_r, ragged_vol)]
+
+
+def phase_k6(torch, dev, k3_live, k3_coords, grids):
+    """K6 in every mode at 128/256/512 threads on each case of
+    :func:`k6_cases`: bit-equal to its twin, the full mode to K4's values,
+    the kernel's row map (loads and full) equal to ``trilerp_box_rows``;
+    both the staged and the global-tap path run. The SASS keeps the taps
+    and the copy engine's copies: in loads and full at least 8 shared loads
+    (the staged path's taps) and 8 global loads (the other path's) more
+    than in weights, and tensor copies (the boxes), none in weights; bulk
+    copies (the coordinates) in every mode. On the tool's rows each mode
+    and K4 are timed beside the twin, grid_sample, the bound and the
+    sector floor."""
+    from dynamicfusion_body_tpu_torch.ops.trilerp_cuda import (
+        ABLATION_MODES, ABLATION_THREADS, ablation_rows, trilerp_ablation,
+        trilerp_ablation_ref, trilerp_box_rows, trilerp_bricks)
     from dynamicfusion_body_tpu_torch.tools.profile_trilerp import (
         grid_sample_fn, mode_bounds)
 
-    live, wx, wy, wz = trilerp_inputs(RES, dev)
-    coords = (wx, wy, wz)
-    k4_vals = trilerp_bricks(live, *coords)[0]
-    bounds = mode_bounds(live, coords)
     err = 0.0
+    paths = [0, 0]  # rows staged, rows read from global memory
+    cases = k6_cases(torch, dev, k3_live, k3_coords, grids)
+    for name, live, coords in cases:
+        k4_vals = trilerp_bricks(live, *coords)[0]
+        fits = trilerp_box_rows(live.shape, *coords)[2].to(torch.uint8)
+        rows = ablation_rows(coords[0].shape)[0]
+        for mode in ABLATION_MODES:
+            want = trilerp_ablation_ref(live, *coords, mode)
+            for threads in ABLATION_THREADS:
+                row_map = (None if mode == "weights" else torch.full(
+                    (rows,), 7, dtype=torch.uint8, device=dev))
+                got = trilerp_ablation(live, *coords, mode, threads,
+                                       row_map=row_map)
+                torch.cuda.synchronize()
+                n_neq = int(torch.sum(got != want))
+                err = max(err, float(torch.max(torch.abs(got - want))))
+                check(n_neq == 0, f"K6 {mode} at {threads} threads on "
+                      f"{name} differs from its twin at {n_neq} samples "
+                      f"(max {err})")
+                if mode == "full":
+                    check(torch.equal(got, k4_vals), f"K6 full at "
+                          f"{threads} threads on {name} differs from K4")
+                if row_map is not None:
+                    n_map = int(torch.sum(row_map != fits))
+                    check(n_map == 0, f"K6 {mode} at {threads} threads on "
+                          f"{name}: row map differs from trilerp_box_rows "
+                          f"at {n_map} of {rows} rows")
+                del got
+            del want
+        staged = int(fits.sum())
+        paths[0] += staged
+        paths[1] += rows - staged
+        print(f"# K6 {name}: {coords[0].numel()} samples, {rows} rows, "
+              f"{staged / rows:.2%} staged; every mode at "
+              f"{'/'.join(map(str, ABLATION_THREADS))} threads bit-equal to "
+              f"its twin, full to K4, loads' and full's row map = "
+              f"trilerp_box_rows")
+    check(all(paths), f"K6 rows staged / global {paths}: a path did not run")
+    print(f"# K6 rows over the cases: staged {paths[0]}, global taps "
+          f"{paths[1]}")
+
+    _, live, coords = cases[0]
+    del cases
+    bounds = mode_bounds(live, coords)
     times = {}
     for mode in ABLATION_MODES:
-        want = trilerp_ablation_ref(live, *coords, mode)
-        for threads in ABLATION_THREADS:
-            got = trilerp_ablation(live, *coords, mode, threads)
-            torch.cuda.synchronize()
-            n_neq = int(torch.sum(got != want))
-            err = max(err, float(torch.max(torch.abs(got - want))))
-            check(n_neq == 0, f"K6 {mode} at {threads} threads differs from "
-                  f"its twin at {n_neq} samples (max {err})")
-            if mode == "full":
-                check(torch.equal(got, k4_vals),
-                      f"K6 full at {threads} threads differs from K4")
-            del got
-        del want
-        ms = cuda_ms(torch, lambda m=mode: trilerp_ablation(live, *coords,
-                                                            m, 256))
+        b = bounds[mode]
+        ms = {t: cuda_ms(torch, lambda m=mode, t=t: trilerp_ablation(
+            live, *coords, m, t)) for t in ABLATION_THREADS}
         plain = cuda_ms(torch, lambda m=mode: trilerp_ablation_ref(
             live, *coords, m), reps=3)
-        times[mode] = (ms, plain)
-        b = bounds[mode]
-        print(f"# K6 {mode}: bit-equal to its twin"
-              f"{' and to K4' if mode == 'full' else ''} at "
-              f"{'/'.join(map(str, ABLATION_THREADS))} threads; kernel "
-              f"(256 threads) {ms:.4f} ms, twin {plain:.4f} ms; bound "
-              f"{b['bound_ms']:.4f} ms ({b['bound_by']}), "
-              f"{b['bound_ms'] / ms:.1%} of it")
+        times[mode] = (ms[256], plain)
+        floor = (f"; sector floor {b['floor_ms']:.4f} ms, "
+                 f"{b['floor_ms'] / ms[256]:.1%} of it"
+                 if "floor_ms" in b else "")
+        print(f"# K6 {mode} on the tool's 256^3 rows: kernel "
+              + ", ".join(f"{ms[t]:.4f} ms at {t}" for t in ABLATION_THREADS)
+              + f"; twin {plain:.4f} ms; bound {b['bound_ms']:.4f} ms "
+              f"({b['bound_by']}), {b['bound_ms'] / ms[256]:.1%} of it at "
+              f"256{floor}")
+    k4_ms = cuda_ms(torch, lambda: trilerp_bricks(live, *coords))
     lib_ms = cuda_ms(torch, grid_sample_fn(live, *coords))
+    b4 = bounds["k4"]
+    print(f"# K6 beside K4 on the same samples: K4 {k4_ms:.4f} ms (bound "
+          f"{b4['bound_ms']:.4f}, sector floor {b4['floor_ms']:.4f}); "
+          f"grid_sample {lib_ms:.4f} ms")
+
     loads = sass_loads(torch)
     for t in ABLATION_THREADS:
         n = {m: loads.get((m, t)) for m in ABLATION_MODES}
-        check(None not in n.values() and n["loads"] == n["full"]
-              == n["weights"] + 8,
-              f"K6 SASS at {t} threads: global loads {n}")
-    print(f"# K6 SASS global loads per instantiation: "
+        check(None not in n.values(), f"K6 SASS at {t} threads: {n}")
+        w = n["weights"]
+        check(w["UTMALDG"] == 0 and all(n[m]["UBLKCP"] > 0 for m in n)
+              and all(n[m]["LDG"] >= w["LDG"] + 8
+                      and n[m]["LDS"] >= w["LDS"] + 8
+                      and n[m]["UTMALDG"] > 0 for m in ("loads", "full")),
+              f"K6 SASS at {t} threads: loads and copies {n}")
+    print(f"# K6 SASS per instantiation (LDG global loads, LDS shared "
+          f"loads, UBLKCP bulk copies, UTMALDG tensor copies): "
           f"{ {f'{m}_t{t}': n for (m, t), n in sorted(loads.items())} }")
-    print(f"# K6 grid_sample {lib_ms:.4f} ms on the same samples")
     ms, plain = times["full"]
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain, **bounds["full"],
+    full = bounds["full"]
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                bound_ms=full["bound_ms"], bound_by=full["bound_by"],
                 library_ms=lib_ms)
 
 
@@ -1467,8 +1577,8 @@ def main() -> int:
     from dynamicfusion_body_tpu_torch.ops.fusion_cuda import fuse_depth_multi
     from dynamicfusion_body_tpu_torch.ops.mc_cuda import mc_case_cross
     from dynamicfusion_body_tpu_torch.ops.trilerp_cuda import (
-        trilerp_ablation, trilerp_bricks, warp_trilerp_bricks,
-        warp_trilerp_bricks_cached)
+        ablation_kernel_info, trilerp_ablation, trilerp_bricks,
+        warp_trilerp_bricks, warp_trilerp_bricks_cached)
     from dynamicfusion_body_tpu_torch.pipeline.frame import fusion_frame
 
     smi = subprocess.run(
@@ -1523,8 +1633,10 @@ def main() -> int:
         torch, dev, lives[1], wf,
         {C: info["warp_trilerp_bricks", C]["grid"] for C in K3_CANDIDATES})
     rows["trilerp_bricks"] = phase_k4(torch, lives[1], coords)
+    rows["trilerp_ablation"] = phase_k6(
+        torch, dev, lives[1], coords,
+        {key: i["grid"] for key, i in ablation_kernel_info().items()})
     del coords
-    rows["trilerp_ablation"] = phase_k6(torch, dev)
     torch.cuda.empty_cache()
     stamp("K6")
     phase_padded(torch, dev)

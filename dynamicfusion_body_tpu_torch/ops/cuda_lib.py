@@ -71,10 +71,15 @@ SIGNATURES = {
     "dfb_trilerp_bricks": (
         _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _P, _P, _P,
     ),
-    # (mode, threads, live, wx, wy, wz, n, rx, ry, rz, out, stream)
+    # (mode, threads, live, wx, wy, wz, n, V (samples a row), rx, ry, rz,
+    #  out, row_map (null: none), stream)
     "dfb_trilerp_ablation": (
-        _I, _I, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _P, _P,
+        _I, _I, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _P, _P,
+        _P,
     ),
+    # (mode, threads, V, out[6]): registers, local bytes, threads, CTAs per
+    # SM, persistent grid, dynamic shared bytes
+    "dfb_trilerp_ablation_info": (_I, _I, _I, _IP),
     # (vals, wts, depths, projs, kinv_row2, n_views, h, w, X, Y, Z,
     #  tdist, wmax, vals_out, wts_out, cull_out (null: none), stream)
     "dfb_fuse_depth_multi": (

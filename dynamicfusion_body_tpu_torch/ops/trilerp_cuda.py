@@ -16,14 +16,17 @@
   at given coordinates;
 * K6 ``trilerp_ablation`` (``csrc/trilerp_ablation.cu``): K4 taken apart
   into its tap loads and its weights, counterpart of the TPU ablation in
-  ``tools/profile_trilerp.py:142``, for the profiling tools.
+  ``tools/profile_trilerp.py:142``, for the profiling tools; it stages each
+  row's tap box in shared memory (:func:`trilerp_box_rows`), as the TPU
+  kernel stages its VMEM box.
 
 All four share one device trilerp (``csrc/trilerp.cuh``), the formula of
 ``ops/interp.py:trilinear_c`` (the JAX package's ``_trilinear_c``). What
 the TPU mechanisms become here:
-* the (16, 24, Z) VMEM staging box and its escape output are gone: the
-  kernels read taps straight from global memory, so no sample escapes and
-  ``valid`` is exactly "inside the live volume";
+* the (16, 24, Z) VMEM staging box and its escape output are gone: K2-K4
+  read taps straight from global memory, and K6 stages a row's box in
+  shared memory where it fits and reads global memory where it does not,
+  so no sample escapes and ``valid`` is exactly "inside the live volume";
 * the bf16 hi/lo MXU contraction becomes the plain f32 formula (so the
   JAX update's near-threshold re-sample has no counterpart, see
   ``models/warp_field.py:update_tsdf_nonrigid``);
@@ -470,12 +473,62 @@ trilerp_bricks.launches = 0
 
 ABLATION_MODES = ("loads", "weights", "full")
 ABLATION_THREADS = (128, 256, 512)
+# K6's rows hold at most ABLATION_ROW samples; a row whose taps fit
+# ABLATION_BOX cells along (x, y, z) from its least cell (z rounded down to
+# a multiple of 4), none of them clamped at a far face of the volume, is
+# staged in shared memory (csrc/trilerp_ablation.cu: kMaxRow, kBoxX,
+# kBoxY, kBoxZ)
+ABLATION_ROW = 512
+ABLATION_BOX = (10, 10, 16)
 
 
 def _check_mode(mode):
     if mode not in ABLATION_MODES:
         raise ValueError(f"trilerp_ablation: mode {mode!r} is not one of "
                          f"{ABLATION_MODES}")
+
+
+def ablation_rows(shape) -> tuple:
+    """(rows, V): how K6 cuts samples of coordinate ``shape`` into rows of
+    V consecutive samples, the last one possibly shorter. V is the last
+    axis when there are two or more axes and it is at most
+    ``ABLATION_ROW`` (the (NB, V) brick rows), else ``ABLATION_ROW``."""
+    n = 1
+    for d in shape:
+        n *= int(d)
+    V = int(shape[-1]) if len(shape) >= 2 else ABLATION_ROW
+    if not 1 <= V <= ABLATION_ROW:
+        V = ABLATION_ROW
+    return -(-n // V), V
+
+
+def trilerp_box_rows(shape, wx, wy, wz):
+    """K6's per-row box, the predicate its row_map follows, in plain
+    PyTorch: for the rows of :func:`ablation_rows` over samples of a live
+    volume of ``shape``, the origin (the least x0, y0, z0, z rounded down
+    to a multiple of 4) and the extent (nx, ny, nz from the origin) of the
+    cells the rows' taps read
+    (:func:`trilinear_index`'s clamped floors and upper taps), each
+    (rows, 3) int64, and whether the row is staged, (rows,) bool: its
+    extent fits ``ABLATION_BOX`` and no upper tap is clamped (every
+    x0 <= rx - 2, and so on), so that the 8 taps of every sample lie at
+    fixed offsets from its first."""
+    rows, V = ablation_rows(wx.shape)
+    lo, hi = [], []
+    for (i0, _), w in zip(trilinear_index(shape, wx, wy, wz)[:3],
+                          (wx, wy, wz)):
+        i0 = i0.reshape(-1)
+        pad = rows * V - i0.numel()  # the short last row: neutral values
+        i0 = torch.cat([i0, i0[-1:].expand(pad)]).reshape(rows, V)
+        lo.append(i0.amin(1))
+        hi.append(i0.amax(1))
+    lo[2] = lo[2] - lo[2] % 4
+    origin, top = torch.stack(lo, 1), torch.stack(hi, 1)
+    last = torch.tensor(shape, device=top.device) - 1
+    extent = torch.minimum(top + 1, last) - origin + 1
+    fits = torch.all((top < last) & (extent <= torch.tensor(
+        ABLATION_BOX, device=top.device)), 1)
+    return origin, extent, fits
 
 
 def trilerp_ablation_ref(live, wx, wy, wz, mode: str):
@@ -501,34 +554,75 @@ def trilerp_ablation_ref(live, wx, wy, wz, mode: str):
     return out
 
 
-def trilerp_ablation(live, wx, wy, wz, mode: str, threads: int = 256):
+def trilerp_ablation(live, wx, wy, wz, mode: str, threads: int = 256,
+                     row_map=None):
     """K6: one of K4's parts at the coordinates wx/wy/wz (any one shape)
-    on ``live`` (rx, ry, rz) f32, one thread per sample in blocks of
-    ``threads`` (128, 256 or 512; the TPU kernel's ``group``). ``mode``:
-    ``loads`` (the tap loads alone, summed), ``weights`` (the weights
-    alone, summed; reads nothing of ``live``) or ``full`` (K4's vals).
-    Returns f32 of the coordinates' shape. The TPU kernel's bf16 pass
-    count and tent weights have no counterpart (f32, no matrix unit).
+    on ``live`` (rx, ry, rz) f32, on persistent CTAs of ``threads`` (128,
+    256 or 512; the TPU kernel's ``group``) that walk the rows of
+    :func:`ablation_rows`. ``mode``: ``loads`` (the tap loads alone,
+    summed), ``weights`` (the weights alone, summed; reads nothing of
+    ``live``) or ``full`` (K4's vals). In ``loads`` and ``full`` each
+    row's tap box is staged in shared memory where
+    :func:`trilerp_box_rows` says it fits, and the other rows read their
+    taps from global memory. Returns f32 of the coordinates' shape.
+    ``row_map``, a (rows,) uint8 tensor on the volume's device, receives
+    1 for each staged row and 0 for the others (``loads`` and ``full``
+    only: ``weights`` stages nothing). The TPU kernel's bf16 pass count
+    and tent weights have no counterpart (f32, no matrix unit).
 
-    A CPU tensor takes the plain twin; a CUDA tensor launches the kernel
-    or raises."""
+    A CPU tensor takes the plain twin (and ``row_map`` the predicate); a
+    CUDA tensor launches the kernel or raises."""
     _check_mode(mode)
     if threads not in ABLATION_THREADS:
         raise ValueError(f"trilerp_ablation: {threads} threads per block is "
                          f"not one of {ABLATION_THREADS}")
+    rows, V = ablation_rows(wx.shape)
+    if row_map is not None and mode == "weights":
+        raise ValueError("trilerp_ablation: the weights mode stages no box "
+                         "and writes no row_map")
+    if row_map is not None and (
+            tuple(row_map.shape) != (rows,) or row_map.dtype != torch.uint8
+            or row_map.device != live.device
+            or not row_map.is_contiguous()):
+        raise ValueError(f"trilerp_ablation: row_map must be a contiguous "
+                         f"({rows},) uint8 tensor on {live.device}")
     if live.device.type == "cpu":
+        if row_map is not None:
+            row_map.copy_(trilerp_box_rows(live.shape, wx, wy, wz)[2])
         return trilerp_ablation_ref(live, wx, wy, wz, mode)
     live_c, coords = _trilerp_args("trilerp_ablation", live, wx, wy, wz)
     rx, ry, rz = live.shape
+    if ry * rz >= 2 ** 31 or max(live.shape) > 2 ** 22:
+        raise ValueError(f"trilerp_ablation: live {tuple(live.shape)}: the "
+                         "kernel takes planes of fewer than 2^31 cells and "
+                         "axes of at most 2^22")
     dev = live.device
     out = torch.empty(wx.shape, dtype=torch.float32, device=dev)
     err = cuda_lib.lib().dfb_trilerp_ablation(
         ABLATION_MODES.index(mode), threads, live_c.data_ptr(),
-        *(c.data_ptr() for c in coords), wx.numel(), rx, ry, rz,
-        out.data_ptr(), cuda_lib.stream_ptr(dev))
+        *(c.data_ptr() for c in coords), wx.numel(), V, rx, ry, rz,
+        out.data_ptr(), _ptr(row_map), cuda_lib.stream_ptr(dev))
     cuda_lib.check("trilerp_ablation", err)
     trilerp_ablation.launches += 1
     return out
 
 
 trilerp_ablation.launches = 0
+
+
+def ablation_kernel_info(V: int = ABLATION_ROW) -> dict:
+    """What the card makes of each K6 instantiation, {(mode, threads):
+    info} at rows of ``V`` samples: registers and local (spill) bytes per
+    thread, threads per CTA, CTAs per SM, the persistent grid and the
+    dynamic shared bytes. Needs the card."""
+    keys = ("registers", "local_bytes", "threads", "ctas_per_sm", "grid",
+            "dynamic_smem")
+    out = {}
+    for mode in ABLATION_MODES:
+        for threads in ABLATION_THREADS:
+            buf = (ctypes.c_int * len(keys))()
+            cuda_lib.check("trilerp_ablation info",
+                           cuda_lib.lib().dfb_trilerp_ablation_info(
+                               ABLATION_MODES.index(mode), threads, V, buf))
+            out[mode, threads] = dict(zip(keys, buf))
+    return out

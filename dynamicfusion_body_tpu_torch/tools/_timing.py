@@ -13,6 +13,9 @@ directly, so that arithmetic goes. Each row here gets two numbers:
   calls after a warm-up call — the stream's time, which includes the idle
   gaps where the host holds the card back.
 
+A row given a ``bound_ms`` (and ``floor_ms``, a bound counted in whole
+32-byte sectors: :func:`live_sectors`) prints its share of each.
+
 On the CPU a row has ``wall_ms`` only. With ``trace`` (the tools'
 ``--trace DIR``) each row runs once more inside
 :func:`..utils.profiling.device_trace`, which writes
@@ -94,8 +97,8 @@ def bound(nbytes, nops):
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
-def live_taps(shape, coords) -> int:
-    """The number of distinct cells of a live volume of ``shape`` that the
+def _tapped(shape, coords) -> torch.Tensor:
+    """(rx·ry·rz,) bool: the cells of a live volume of ``shape`` that the
     trilerp at ``coords`` (wx, wy, wz) reads: 8 clamped corners each, as
     the kernels and ``ops/interp.py:trilinear_c`` take them."""
     rx, ry, rz = shape
@@ -110,7 +113,26 @@ def live_taps(shape, coords) -> int:
         for iy in (lo[1], hi[1]):
             for iz in (lo[2], hi[2]):
                 tapped[(ix * ry + iy) * rz + iz] = True
-    return int(torch.sum(tapped))
+    return tapped
+
+
+def live_taps(shape, coords) -> int:
+    """The number of distinct cells of a live volume of ``shape`` that the
+    trilerp at ``coords`` (wx, wy, wz) reads: 8 clamped corners each, as
+    the kernels and ``ops/interp.py:trilinear_c`` take them."""
+    return int(torch.sum(_tapped(shape, coords)))
+
+
+def live_sectors(shape, coords) -> int:
+    """The number of distinct 32-byte sectors (8 f32 cells of the flat
+    volume, from a 32-byte aligned start) that hold a cell the trilerp at
+    ``coords`` reads: what the memory system moves for the taps at the
+    least."""
+    tapped = _tapped(shape, coords)
+    pad = -tapped.numel() % 8
+    if pad:
+        tapped = torch.cat([tapped, tapped.new_zeros(pad)])
+    return int(torch.sum(tapped.reshape(-1, 8).any(1)))
 
 
 # the port's kernel wrappers (each counts its launches in ``.launches``)
@@ -214,6 +236,10 @@ class Timer:
             line += f"  bound {row['bound_ms']:.4f} ms ({row['bound_by']})"
             if ev:
                 line += f", {row['bound_ms'] / ev:.1%} of it"
+        if "floor_ms" in row:
+            line += f"; sector floor {row['floor_ms']:.4f} ms"
+            if ev:
+                line += f", {row['floor_ms'] / ev:.1%} of it"
         print(line, flush=True)
         if "busy" in row:
             if row["trace_lost"]:

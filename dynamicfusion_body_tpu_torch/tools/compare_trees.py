@@ -1,4 +1,5 @@
-"""Time K1 and K5 of two checkouts of the repository in turns, on one card.
+"""Time K1, K5 and K6 of two checkouts of the repository in turns, on one
+card.
 
 Each turn is one process in the root of one checkout, which builds that
 checkout's kernels and runs its own code:
@@ -6,7 +7,10 @@ checkout's kernels and runs its own code:
   device time of one traced K1 launch (and the CUDA-event mean of 20);
 - ``chip_smoke.config6_views`` and ``chip_smoke.phase_k5``: config 6's
   8 views of 512² rendered on the card, K5 held to its twin, and its
-  kernel line, the CUDA-event mean of 10 launches into 256³.
+  kernel line, the CUDA-event mean of 10 launches into 256³;
+- K6, ``trilerp_ablation(..., "full", 256)`` on the trilerp profiler's
+  256³ inputs (``tools/_scene.py:trilerp_inputs``, 16.8 M samples): the
+  CUDA-event mean of 10 launches (``chip_smoke.cuda_ms``).
 The turns go A, B, B, A, so that a drift of the card's clock shows as a
 difference between a checkout's two turns.
 
@@ -29,15 +33,20 @@ from pathlib import Path
 TURN = r"""
 import json, tempfile, torch
 import chip_smoke as cs
+from dynamicfusion_body_tpu_torch.ops.trilerp_cuda import trilerp_ablation
 from dynamicfusion_body_tpu_torch.tools import profile_mc
+from dynamicfusion_body_tpu_torch.tools._scene import trilerp_inputs
 with tempfile.TemporaryDirectory() as tmp:
     row = profile_mc.main(["--reps", "20", "--trace", tmp])["mc_case_cross"]
 dev = torch.device("cuda", 0)
 _, _, depths, lws = cs.config6_views(torch, dev)
 k5 = cs.phase_k5(torch, dev, depths, lws)
+del depths
+live, *coords = trilerp_inputs(256, dev)
+k6 = cs.cuda_ms(torch, lambda: trilerp_ablation(live, *coords, "full", 256))
 print("TURN " + json.dumps(dict(k1_device_ms=row.get("device_ms"),
                                 k1_event_ms=row["event_ms"],
-                                k5_ms=k5["ms"])))
+                                k5_ms=k5["ms"], k6_full_ms=k6)))
 """
 
 
@@ -66,7 +75,7 @@ def main(argv=None) -> dict:
         res = turn(root.resolve())
         runs[name].append(res)
         print(f"# turn {name} ({root}): {res}", flush=True)
-    for key in ("k1_device_ms", "k1_event_ms", "k5_ms"):
+    for key in ("k1_device_ms", "k1_event_ms", "k5_ms", "k6_full_ms"):
         print(f"# {key}: A {[r[key] for r in runs['A']]} "
               f"B {[r[key] for r in runs['B']]}")
     return runs

@@ -8,9 +8,16 @@ each of its modes — ``loads`` (for ``dma_only``), ``weights`` (for
 ``onehot_only``), ``full`` (for ``full_*pass_*``) — at 128, 256 and 512
 threads per block (for the group), beside K4 (``full_kernel``), its plain
 twin and ``torch.nn.functional.grid_sample`` (the one PyTorch call that
-computes the same trilerp). The bf16 pass count and the tent weights have
-no counterpart (f32, no matrix unit). Each row prints its bound (bytes or
-operations) and, on the card, its share of it.
+computes the same trilerp). Like the TPU kernel, K6 stages each brick
+row's box of ``live`` on chip (in shared memory, where the row's tap
+extent fits ``ABLATION_BOX``) and reads the taps from there; ``loads``
+stages the box and sums the taps, ``weights`` reads no ``live``. The bf16
+pass count and the tent weights have no counterpart (f32, no matrix
+unit). Each row prints its bound (bytes or operations; the live cells
+tapped counted once) and, on the card, its share of it, and for the rows
+that read ``live`` the sector floor: the bound's bytes with the tapped
+cells counted as whole 32-byte sectors, the least the memory system can
+move for them.
 
 Inputs as the JAX tool's: ``np.random.RandomState(0)``, live
 ``rand(R,R,R)``, per-brick coordinates ``base + offs`` of shape
@@ -30,7 +37,9 @@ from ..ops.trilerp_cuda import (
     trilerp_bricks)
 from ..pipeline.fusion import resolve_device
 from ._scene import trilerp_inputs
-from ._timing import Timer, bound, device_label, live_taps, parse_args
+from ._timing import (
+    HBM_BPS, Timer, bound, device_label, live_sectors, live_taps,
+    parse_args)
 
 # f32 operations per sample: the index step (3 clamps of 2, 3 floors,
 # 3 mins, 3 adds, 3 subtractions), the 7 additions of the loads' sum, the
@@ -59,12 +68,17 @@ def grid_sample_fn(live, wx, wy, wz):
 def mode_bounds(live, coords):
     """Each mode's bound on these inputs: coordinates read and one f32
     written per sample; the loads and the full trilerp also read each
-    live cell they tap once. K4 writes ``valid`` (1 B) besides."""
+    live cell they tap once. K4 writes ``valid`` (1 B) besides. The modes
+    that read ``live`` also get ``floor_ms``: the same bytes with the
+    tapped cells counted as whole 32-byte sectors, over the memory rate."""
     n = coords[0].numel()
     taps = 4 * live_taps(live.shape, coords)
+    sectors = 32 * live_sectors(live.shape, coords)
     out = {m: bound(16 * n + (0 if m == "weights" else taps),
                     n * MODE_OPS[m]) for m in ABLATION_MODES}
     out["k4"] = bound(17 * n + taps, n * (MODE_OPS["full"] + OPS_VALID))
+    for m, base in (("loads", 16 * n), ("full", 16 * n), ("k4", 17 * n)):
+        out[m]["floor_ms"] = (base + sectors) / HBM_BPS * 1e3
     return out
 
 
