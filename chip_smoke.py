@@ -84,7 +84,14 @@ Phases, each of which raises on failure (exit code 1):
      process at 256³: profile_trilerp and profile_upd as a user runs them,
      profile_mc, profile_solve and profile_frame with --reps 3 and --trace
      (into a temporary directory); their lines go out as '#' lines; K6
-     must have launched there.
+     must have launched there;
+  13. the benchmark entry points (dynamicfusion_body_tpu_torch/
+     benchmarks, tools/diag_*), in process: the bench at 256³ with its
+     three accuracy gates (bench.py's keys, accuracy_ok true, K1 and K2
+     launched, no mesh over its caps), the suite's configs 1-3 (config
+     3's median rotation error below 1 degree), diag_gate's exact arm and
+     diag_config7's base arm (config 7: tracked below untracked) at 64³;
+     K1, K2 and K5 must have launched there.
 The last lines are the kernel table as JSON, the card, then
 ``{"ok": true, "device": {...}}``. No result is printed without a GPU.
 """
@@ -777,15 +784,18 @@ def phase_k6(torch, dev, k3_live, k3_coords, grids):
 
 
 class HashLines(io.TextIOBase):
-    """A text stream that writes each line to ``out`` as a '#' line."""
+    """A text stream that writes each line to ``out`` as a '#' line and
+    keeps the lines as written in ``lines``."""
 
     def __init__(self, out):
         self.out = out
         self.tail = ""
+        self.lines = []
 
     def write(self, text):
         lines = (self.tail + text).split("\n")
         self.tail = lines.pop()
+        self.lines += lines
         for line in lines:
             self.out.write((line if line.startswith("#") else "# " + line)
                            + "\n")
@@ -830,6 +840,78 @@ def phase_tools(torch):
         check(not r["trace_lost"] and r["device_ms"] > 0,
               f"the trace of {tool} {row} is not whole: {r['trace_lost']}")
     return out
+
+
+def phase_entry_points(torch, dev, stamp):
+    """The benchmark entry points in this process, as a user runs them:
+    the bench at 256³ (its JSON line must carry bench.py's keys with
+    every gate's value and accuracy_ok true; K1 and K2 must launch; no
+    mesh may overflow its caps), the suite's configs 1, 2 and 3 (finite
+    values; config 3's median rotation error below 1 degree; configs 4,
+    6 and 7 have phases of their own), then diag_gate (its exact arm)
+    and diag_config7 (its base arm, which is config 7 at 64³: the final
+    error must be below the untracked one) at 64³. Their lines go out as
+    '#' lines."""
+    from dynamicfusion_body_tpu_torch.benchmarks import bench, suite
+    from dynamicfusion_body_tpu_torch.tools import diag_config7, diag_gate
+
+    def quiet(fn):
+        """fn() with its standard output and error as '#' lines; returns
+        (fn's result, its standard output's lines)."""
+        out = HashLines(sys.stdout)
+        with contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(HashLines(sys.stdout)):
+            res = fn()
+        return res, out.lines
+
+    report, lines = quiet(lambda: bench.main([]))
+    line = json.loads(lines[-1])
+    check(tuple(line) == bench.RESULT_KEYS,
+          f"bench: the JSON line's keys {tuple(line)}")
+    gate_keys = ("accuracy_tsdf_dev_p999", "accuracy_tsdf_dev_max",
+                 "accuracy_cost_ratio", "accuracy_cost_slack_vs_presolve",
+                 "pool_risk", "corr_risk", "corr_refresh")
+    check(all(np.isfinite(line[k]) for k in gate_keys),
+          f"bench: a gate value is not finite: {line}")
+    print(f"# bench at {RES}^3: {line['value']} ms/frame by the chain, "
+          f"{report.walls_ms:.1f} by the six chained frames' walls / 6, "
+          f"synced frames {[round(w, 1) for w in report.frame_walls]} ms; "
+          f"gates {report.gates}; arms {report.arm_ms} ms; peak "
+          f"{report.peak_gib:.2f} GiB (chain {report.peak_chain_gib:.2f}); "
+          f"launches {report.launches}; mesh overflow "
+          f"{report.mesh_overflow}")
+    check(line["accuracy_ok"] is True, f"bench: accuracy gates {line}")
+    check(all(report.launches.values()),
+          f"bench: K1/K2 launches {report.launches}")
+    check(not report.mesh_overflow, "bench: a mesh overflowed its caps")
+    del report
+    torch.cuda.empty_cache()
+    stamp("bench entry point")
+
+    for c in (1, 2, 3):
+        lines, _ = quiet(lambda c=c: suite.CONFIGS[c](dev))
+        for ln in lines:
+            check(np.isfinite(ln["value"]) and ln["value"] > 0,
+                  f"suite config {c}: {ln}")
+        print(f"# suite config {c}: {lines}")
+    icp = lines[0]["median_rot_err_deg"]
+    check(icp < 1.0, f"suite config 3: median rotation error {icp} deg")
+    torch.cuda.empty_cache()
+    stamp("suite configs 1-3")
+
+    arms, _ = quiet(lambda: diag_gate.main(["--res", "64", "--arm",
+                                            "exact"]))
+    check(all(np.isfinite(v) for v in arms["exact"].values()),
+          f"diag_gate: {arms}")
+    torch.cuda.empty_cache()
+    stamp("diag_gate at 64^3")
+    (arm,), _ = quiet(lambda: diag_config7.main(["--res", "64"]))
+    print(f"# diag_config7 base arm at 64^3: {arm}")
+    check(arm["final_voxels"] < arm["untracked_voxels"],
+          f"diag_config7: error {arm['final_voxels']} not below the "
+          f"untracked {arm['untracked_voxels']}")
+    torch.cuda.empty_cache()
+    stamp("diag_config7 at 64^3")
 
 
 def phase_bare_window(torch):
@@ -1053,22 +1135,6 @@ def run_frame(torch, fusion_frame, state, live, hyper):
           f"cost {float(stats.cost_before_h[-1]):.2f} -> "
           f"{float(stats.cost_after[-1]):.2f} ({track:.2e} per corr)")
     return (v, w, wf2, lw2, mesh2), ms
-
-
-def sample_surface(verts, faces, n, seed=0):
-    """~n points uniformly on the triangle surface (area-weighted), as
-    benchmarks/suite.py:_sample_surface draws them."""
-    rng = np.random.RandomState(seed)
-    tri = verts[faces]
-    area = 0.5 * np.linalg.norm(
-        np.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0]), axis=1)
-    fi = rng.choice(len(faces), size=n, p=area / area.sum())
-    u, v = rng.rand(n), rng.rand(n)
-    flip = u + v > 1
-    u, v = np.where(flip, 1 - u, u), np.where(flip, 1 - v, v)
-    t = tri[fi]
-    return (t[:, 0] + u[:, None] * (t[:, 1] - t[:, 0])
-            + v[:, None] * (t[:, 2] - t[:, 0])).astype(np.float32)
 
 
 def config6_views(torch, dev):
@@ -1376,6 +1442,7 @@ def phase_config6(torch, dev, verts, faces, depths, lws):
     from scipy.spatial import cKDTree
 
     from dynamicfusion_body_tpu_torch.ops.fusion_cuda import fuse_depth_multi
+    from dynamicfusion_body_tpu_torch.benchmarks.suite import _sample_surface
     from dynamicfusion_body_tpu_torch.ops.interp import trilinear
     from dynamicfusion_body_tpu_torch.ops.mc_cuda import mc_case_cross
     from dynamicfusion_body_tpu_torch.pipeline.fusion import FusionDM
@@ -1413,7 +1480,7 @@ def phase_config6(torch, dev, verts, faces, depths, lws):
     obs = (wts >= 3.0).cpu().numpy()
     wv = gv.cpu().numpy() @ ind[:3, :3].T + ind[:3, 3]
     t0 = time.perf_counter()
-    samples = sample_surface(verts, faces, 300_000)
+    samples = _sample_surface(verts, faces, 300_000)
     scored = wv[obs] if obs.any() else wv
     do, _ = cKDTree(samples).query(scored, k=1)
     voxel = float(ind[0, 0])
@@ -1603,8 +1670,8 @@ def main() -> int:
 
     rows = {}
     # launches of each kernel on the paths it serves (bench, config 4,
-    # config 6, config 7, the profiling tools), each path's counts set to 0
-    # just before it; K4 (trilerp_bricks) and K6 (trilerp_ablation) serve
+    # config 6, config 7, the profiling tools, the benchmark entry points),
+    # each path's counts set to 0 just before it; K4 (trilerp_bricks) and K6 (trilerp_ablation) serve
     # the tools only
     meta = {
         "mc_case_cross": ("mc_case_cross.cu", f"{PKG}/ops/mc_pallas.py:98"),
@@ -1719,6 +1786,17 @@ def main() -> int:
     for name, n in launches.items():
         total[name] += n
     stamp("profiling tools")
+
+    for kern in kernels.values():
+        kern.launches = 0
+    phase_entry_points(torch, dev, stamp)
+    launches = {name: k.launches for name, k in kernels.items()}
+    print(f"# entry points launches {launches}")
+    for name in ("mc_case_cross", "warp_trilerp_bricks_cached",
+                 "fuse_depth_multi"):
+        check(launches[name] > 0, f"the entry points launched no {name}")
+    for name, n in launches.items():
+        total[name] += n
 
     table = {"kernels": [
         dict(name=name, route="cuda", source=f"{PKG}_torch/csrc/{src}",

@@ -134,10 +134,13 @@ def fusion_frame(
     if n_vox > (1 << 26) and not allow_large:  # > 64M voxels (~406³)
         raise ValueError(
             f"fusion_frame: volume {tuple(values.shape)} ({n_vox/1e6:.0f}M "
-            "voxels) exceeds the single-dispatch HBM budget (measured "
-            "thrashing at 512³ on a 16 GB TPU; docs/tpu_kernel_notes.md). "
-            "Use the multi-dispatch driver pipeline.fusion.Fusion (see "
-            "benchmarks/bench512.py) or pass allow_large=True to override."
+            "voxels) is above the 64M-voxel limit of one call, which this "
+            "package keeps from the JAX package; only 256³ is measured: "
+            "there the frame bench (dynamicfusion_body_tpu_torch."
+            "benchmarks.bench) peaks at 3.57 GiB of device memory over "
+            "its frames (3.80 GiB with its accuracy arms) on an NVIDIA "
+            "H100 80GB HBM3 at 700 W. Pass allow_large=True to run it "
+            "anyway."
         )
     dev = values.device
     if canon_mesh is None:

@@ -45,7 +45,8 @@ from dynamicfusion_body_tpu.render.raster import (  # noqa: E402
 from dynamicfusion_body_tpu_torch.io.mesh_io import regularize_mesh  # noqa: E402
 from dynamicfusion_body_tpu_torch.ops.interp import trilinear  # noqa: E402
 from dynamicfusion_body_tpu_torch.pipeline import fusion as TF  # noqa: E402
-from chip_smoke import sample_surface  # noqa: E402  (suite.py's sampler)
+from dynamicfusion_body_tpu_torch.benchmarks.suite import (  # noqa: E402
+    _sample_surface as sample_surface)  # suite.py's sampler
 from test_torch_tsdf_volume import edge_mask  # noqa: E402
 
 # One intra-op thread (see tests/test_torch_marching_cubes.py)

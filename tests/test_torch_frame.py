@@ -156,8 +156,12 @@ def test_unported_branches_raise(scene):
 
 def test_large_volume_guard():
     """tests/test_frame.py:130: > 64M voxels is refused before any work
-    (meta tensors: nothing is allocated)."""
+    (meta tensors: nothing is allocated). The message quotes the port's
+    own H100 measurement, not a TPU's."""
     vol = torch.empty((512,) * 3, device="meta")
-    with pytest.raises(ValueError, match="multi-dispatch"):
+    with pytest.raises(ValueError, match="64M-voxel limit") as err:
         TF.fusion_frame(vol, vol, vol, None, None, regularization_weight=1.0,
                         reuse_corr=False)
+    msg = str(err.value).replace("dynamicfusion_body_tpu_torch", "")
+    assert "tpu" not in msg.lower()
+    assert "H100" in msg and "GiB" in msg and "allow_large" in msg
