@@ -45,8 +45,9 @@ Phases, each of which raises on failure (exit code 1):
      and without coordinates, bit-equal), and the update's kernel arm
      against its plain arm there; then both on a lattice whose brick count
      leaves a ragged last round of their persistent grids (bit-equal);
-  6. benchmarks/suite.py config 4: the non-rigid update at 256³ without
-     caches (K3 once per call), 3 timed calls, the plain arm (p99.9
+  6. benchmarks/suite.py config 4 through the port's suite.config4: the
+     non-rigid update at 256³ without caches (K3 once per call), a warm
+     call and 3 timed calls, then one more against the plain arm (p99.9
      |Δvalues| < 0.5);
   7. the bench scene (bench.py): init_canonical, 2 warm-up frames and 3
      timed frames of fusion_frame at 256³ with the bench's settings and
@@ -56,7 +57,7 @@ Phases, each of which raises on failure (exit code 1):
      and every frame must keep tracking (energy per correspondence after
      the solve below TRACK_MAX); then one frame of the plain arm
      (use_kernels=False) from the state of the last timed frame: p99.9
-     |Δtsdf| < 0.5 (bench gate 1);
+     |Δtsdf| < 0.5 (bench gate 1); phase 14 follows;
   8. K5 (fuse_depth_multi) against its plain twin, bit-equal, at 256³ on
      the inputs of benchmarks/suite.py config 6: meshes/original.obj
      rendered from 8 yaw views at 512² by the port's render_depth, the grid
@@ -67,31 +68,49 @@ Phases, each of which raises on failure (exit code 1):
      each the kernel's view cull equals fuse_cull_tiles; the share it
      skips, the voxel-views by path and K5's issue time from its SASS are
      printed;
-  9. config 6 through FusionDM at 256³ (a warm call, timed calls and one
-     profiled call of compute_live_tsdf, then marching_cubes): K5 and K1
-     must have launched, and the vertices seen by >= 3 views must lie on
+  9. config 6 at 256³ through the port's suite.run_config6 (FusionDM's
+     ingest, marching_cubes, the score), then one profiled ingest: K5 and
+     K1 must have launched, and the vertices seen by >= 3 views must lie on
      the mesh within a mean of 1 voxel and a p95 of 2 voxels (the mesh
      overflows its 2^17-vertex cap, so the share of the surface the scored
      vertices cover is printed beside the score);
   10. the ICP branch (useICP=True) at 256³ with the first 3 views: a
      finite volume, correspondences, and the recovered pose;
-  11. benchmarks/suite.py config 7 at 256³ through the port's Fusion: the
-     reference mesh bent by 0.08, 0.16 and 0.24 rad, per frame a live
-     TSDF fused on the canonical lattice and setupCorrespondences → solve
-     → updateTSDF → update_graph; K1, K2 and K5 must have launched and the
-     final surface error must be below the untracked one;
+  11. benchmarks/suite.py config 7 at 256³ through the port's
+     suite.run_config7 and Fusion: the reference mesh bent by 0.08, 0.16
+     and 0.24 rad, per frame a live TSDF fused on the canonical lattice and
+     setupCorrespondences → solve → updateTSDF → update_graph; every
+     frame's TSDF finite, K1, K2 and K5 launched, and the final surface
+     error below the untracked one;
   12. the profiling entry points (dynamicfusion_body_tpu_torch/tools), in
-     process at 256³: profile_trilerp and profile_upd as a user runs them,
-     profile_mc, profile_solve and profile_frame with --reps 3 and --trace
-     (into a temporary directory); their lines go out as '#' lines; K6
-     must have launched there;
+     process at 256³: profile_trilerp and profile_upd as a user runs
+     them, profile_mc, profile_solve and profile_frame with --reps 3 and
+     --trace (into a temporary directory), then profile_corr5 as a user
+     runs it; their lines go out as '#' lines; K6 must have launched
+     there;
   13. the benchmark entry points (dynamicfusion_body_tpu_torch/
      benchmarks, tools/diag_*), in process: the bench at 256³ with its
      three accuracy gates (bench.py's keys, accuracy_ok true, K1 and K2
      launched, no mesh over its caps), the suite's configs 1-3 (config
      3's median rotation error below 1 degree), diag_gate's exact arm and
      diag_config7's base arm (config 7: tracked below untracked) at 64³;
-     K1, K2 and K5 must have launched there.
+     K1, K2 and K5 must have launched there;
+  14. (run right after phase 7, from its post-warm-up state on its first
+     timed frame's live volume) the other correspondence modes of the
+     frame at 256³ with the bench's settings and kernels: one frame each
+     with reuse_corr=True, approx_knn="2level", approx_knn=True and
+     use_grid_corr=True, each printed with its wall, n_corr, corr_risk,
+     corr_refresh and final cost; K1 and K2 launched, every frame finite
+     with no mesh over its caps, the reuse and bf16-keyed frames tracking
+     (the 2-level frame's tracking printed: the reference's pools miss
+     most of this scene's neighbours), the reuse frame's final cost at
+     most 1.05 x the fresh frame's (phase 7's first timed frame), the grid
+     frame, without correspondences, keeping its pose; then on the
+     frame-entry warped vertices: knn_2level's distances equal to a direct
+     search on all but at most its risk count of queries, grid_knn equal
+     to it within cell/2 wherever no cell of the query's block
+     overflowed (the overflow printed), the bf16-keyed search's recall,
+     and the k > 4 selection equal to and timed against the stable sort.
 The last lines are the kernel table as JSON, the card, then
 ``{"ok": true, "device": {...}}``. No result is printed without a GPU.
 """
@@ -124,6 +143,9 @@ GATE_DEV_P999 = 0.5  # bench gate 1 (bench.py:314-340), in voxels
 # voxels² (0.05 ~ a 0.3-voxel RMS point-to-plane residual). Measured
 # 2e-4..1.3e-3 on the bench frames; ~1 when far-field warps blow up.
 TRACK_MAX = 0.05
+# the reuse_corr frame's final cost against the fresh frame's from the same
+# state (the bound of the JAX package's tests/test_frame.py:195)
+REUSE_COST_MAX = 1.05
 # benchmarks/suite.py config 6 (suite.py:261-316)
 K6 = np.array([[400.0, 0, 256], [0, 400, 256], [0, 0, 1]], np.float32)
 N_VIEWS, IMG = 8, 512
@@ -146,7 +168,6 @@ K3_OPS_SLOT, K3_OPS_PICK, K3_OPS_FIXED = 8, 28, 204
 K3_CANDIDATES = (8, 16, 32)
 # the global pose of benchmarks/suite.py config 4 and the Fusion driver
 LW_REF = (1.0, 0.0, 0.0, 0.0, 0.0, 0.1, 0.0, 0.0)
-ANGLES7 = (0.08, 0.16, 0.24)  # config 7's bends, rad
 # K5's f32 operations, an IEEE division counted as one (the bound's count):
 # per voxel and view, the projection u, v, pw 18 and the bounds test's 4
 # compares, and the divisions px, py; per in-image voxel-view, the sample
@@ -313,34 +334,33 @@ def phase_k1(torch, dev, canonical):
 
 
 def bench_state(torch, dev):
+    """The bench scene at 256³ (``tools/_scene.py:bench_scene``: the
+    canonical, config 4's live volume, the ``init_canonical`` field) and
+    the five live frames of phases 2-7 (bump phases 0.05·i; the second is
+    the scene's live volume)."""
     from dynamicfusion_body_tpu_torch.ops.marching_cubes import marching_cubes
-    from dynamicfusion_body_tpu_torch.pipeline.frame import init_canonical
-    from dynamicfusion_body_tpu_torch.tools._scene import bumpy_sdf
+    from dynamicfusion_body_tpu_torch.tools._scene import bench_scene, bumpy
 
-    canonical = torch.from_numpy(
-        bumpy_sdf(RES, (128, 128, 128), 70.0, 4.0, 3.0, 0.0)).to(dev)
-    lives = [torch.from_numpy(bumpy_sdf(RES, (130, 129, 128), 70.0, 4.0,
-                                        3.0, 0.05 * i)).to(dev)
+    t0 = time.perf_counter()
+    sc = bench_scene(RES, dev)
+    torch.cuda.synchronize()
+    print(f"# bench scene with init_canonical {time.perf_counter() - t0:.2f}"
+          f" s: nodes {int(sc.wf.num_active)} radius "
+          f"{float(sc.wf.radius):.4f}")
+    lives = [torch.from_numpy(bumpy(RES, (130, 129, 128), 0.05 * i)).to(dev)
              for i in range(1, 6)]
     # FrameStats.overflow also flags a full node pool, which this
     # configuration has from the start (as the JAX package does): check
     # the mesh caps directly, on the twin so no kernel launch is counted
     for name, vol, caps in (
-            ("canonical", canonical, dict(vert_cap=1 << 15,
-                                          face_cap=1 << 16, step_size=2)),
+            ("canonical", sc.canonical, dict(vert_cap=1 << 15,
+                                             face_cap=1 << 16, step_size=2)),
             *((f"live {i}", lv, dict(vert_cap=1 << 17, face_cap=1 << 18,
                                      with_normals=False))
               for i, lv in enumerate(lives))):
         check(not bool(marching_cubes(vol, **caps)["overflow"]),
               f"the {name} mesh overflows its caps")
-    t0 = time.perf_counter()
-    wf, radius = init_canonical(canonical, subsample_rate=1.5,
-                                node_cap=4096, mc_step=2, vert_cap=1 << 15,
-                                face_cap=1 << 16)
-    torch.cuda.synchronize()
-    print(f"# init_canonical {time.perf_counter() - t0:.2f} s: nodes "
-          f"{int(wf.num_active)} radius {float(radius):.4f}")
-    return canonical, lives, wf
+    return sc, lives
 
 
 def phase_k2(torch, dev, lives, wf, grid):
@@ -803,17 +823,29 @@ class HashLines(io.TextIOBase):
         return len(text)
 
 
+def quiet(fn):
+    """fn() with its standard output and error as '#' lines; returns (fn's
+    result, its standard output's lines)."""
+    out = HashLines(sys.stdout)
+    with contextlib.redirect_stdout(out), \
+            contextlib.redirect_stderr(HashLines(sys.stdout)):
+        res = fn()
+    return res, out.lines
+
+
 def phase_tools(torch):
     """The profiling entry points at 256³, in this process:
     profile_trilerp and profile_upd at their defaults, profile_mc,
     profile_solve and profile_frame with --reps 3 and --trace into a
-    temporary directory (deleted after each tool). Returns {tool: rows}."""
+    temporary directory (deleted after each tool), then profile_corr5 at
+    its defaults. Returns {tool: rows}."""
     from dynamicfusion_body_tpu_torch.tools import (
-        profile_frame, profile_mc, profile_solve, profile_trilerp,
-        profile_upd)
+        profile_corr5, profile_frame, profile_mc, profile_solve,
+        profile_trilerp, profile_upd)
 
     runs = ((profile_trilerp, False), (profile_upd, False),
-            (profile_mc, True), (profile_solve, True), (profile_frame, True))
+            (profile_mc, True), (profile_solve, True), (profile_frame, True),
+            (profile_corr5, False))
     out = {}
     for tool, short in runs:
         name = tool.__name__.rsplit(".", 1)[1]
@@ -854,15 +886,6 @@ def phase_entry_points(torch, dev, stamp):
     '#' lines."""
     from dynamicfusion_body_tpu_torch.benchmarks import bench, suite
     from dynamicfusion_body_tpu_torch.tools import diag_config7, diag_gate
-
-    def quiet(fn):
-        """fn() with its standard output and error as '#' lines; returns
-        (fn's result, its standard output's lines)."""
-        out = HashLines(sys.stdout)
-        with contextlib.redirect_stdout(out), \
-                contextlib.redirect_stderr(HashLines(sys.stdout)):
-            res = fn()
-        return res, out.lines
 
     report, lines = quiet(lambda: bench.main([]))
     line = json.loads(lines[-1])
@@ -1059,59 +1082,47 @@ def phase_ragged(torch, dev, grids):
     check(not any(n_neq.values()), f"ragged tail: not bit-equal {n_neq}")
 
 
-def phase_config4(torch, dev, canonical, live, wf):
-    """benchmarks/suite.py config 4 (suite.py:193-226): DQB skinning and the
-    non-rigid update at 256³ without caches, through K3: a warm call, 3
-    timed calls, then the plain arm once."""
-    from dynamicfusion_body_tpu_torch.models.warp_field import (
-        update_tsdf_nonrigid)
+def phase_config4(torch, dev, sc):
+    """benchmarks/suite.py config 4 (suite.py:193-226) through the port's
+    ``suite.config4`` on the bench scene: the cache-less non-rigid update
+    at 256³ through K3, a warm call and 3 timed calls; then one more call
+    against the plain arm."""
+    from dynamicfusion_body_tpu_torch.benchmarks import suite
     from dynamicfusion_body_tpu_torch.ops.trilerp_cuda import (
         warp_trilerp_bricks)
 
-    tdist = float(canonical.max())
-    lw = torch.tensor(LW_REF, dtype=torch.float32, device=dev)
-    zeros = torch.zeros_like(canonical)
-
-    def f(use_kernels):
-        return update_tsdf_nonrigid(canonical, zeros, live, wf, lw, k=3,
-                                    tdist=tdist, brick=8, n_candidates=16,
-                                    use_kernels=use_kernels)
-
     warp_trilerp_bricks.launches = 0
     warp_trilerp_bricks.coord_launches = 0
-    f(True)
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        v, w, esc, risk = f(True)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
+    (line,), _ = quiet(lambda: suite.config4(dev, RES, scene=sc))
     launches = warp_trilerp_bricks.launches
     check(launches == 4, f"config 4: K3 launched {launches} times in 4 "
           "calls")
     check(warp_trilerp_bricks.coord_launches == 0,
           "config 4: the update's K3 wrote coordinates")
-    pv, pw, _, p_risk = f(False)
+    zeros = torch.zeros_like(sc.canonical)
+    v, w, _, risk = suite.config4_update(sc, zeros, True)
+    pv, pw, _, p_risk = suite.config4_update(sc, zeros, False)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(v).all() and torch.isfinite(w).all()),
           "config 4: non-finite TSDF")
     dv = torch.abs(v - pv).cpu().numpy()
     dw = torch.abs(w - pw).cpu().numpy()
     p_v, p_w = float(np.percentile(dv, 99.9)), float(np.percentile(dw, 99.9))
-    print(f"# config 4 at {RES}^3 (no caches, K3): update ms "
-          f"{[round(t, 3) for t in times]} (median {np.median(times):.3f}); "
-          f"pool_risk {int(risk)} (plain arm {int(p_risk)}); kernel vs plain "
-          f"arm |dvalues| p99.9 {p_v:.3g} max {float(dv.max()):.3g}, "
-          f"|dweights| p99.9 {p_w:.3g} max {float(dw.max()):.3g}; updated "
-          f"voxels {int(torch.sum(w > 0))}; launches K3 {launches}, of "
-          f"which with coordinates {warp_trilerp_bricks.coord_launches}")
+    print(f"# config 4 at {RES}^3 (no caches, K3): {line['value']} ms an "
+          f"update (suite.config4, mean of 3); pool_risk {int(risk)} (plain "
+          f"arm {int(p_risk)}); kernel vs plain arm |dvalues| p99.9 "
+          f"{p_v:.3g} max {float(dv.max()):.3g}, |dweights| p99.9 "
+          f"{p_w:.3g} max {float(dw.max()):.3g}; updated voxels "
+          f"{int(torch.sum(w > 0))}; launches K3 {launches}, of which with "
+          f"coordinates 0")
     check(p_v < GATE_DEV_P999 and p_w < GATE_DEV_P999,
           f"config 4: kernel arm deviates (p99.9 {p_v}, {p_w})")
     return launches
 
 
 def run_frame(torch, fusion_frame, state, live, hyper):
+    """One frame from ``state`` that must track. Returns (state', its
+    synced wall ms, its FrameStats)."""
     values, weights, wf, lw, mesh = state
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1134,49 +1145,209 @@ def run_frame(torch, fusion_frame, state, live, hyper):
           f"{int(stats.pool_risk)} ell_overflow {int(stats.ell_overflow)} "
           f"cost {float(stats.cost_before_h[-1]):.2f} -> "
           f"{float(stats.cost_after[-1]):.2f} ({track:.2e} per corr)")
-    return (v, w, wf2, lw2, mesh2), ms
+    return (v, w, wf2, lw2, mesh2), ms, stats
+
+
+def direct_knn(torch, q, p, valid, k, chunk=256):
+    """k-NN by direct differences, the arithmetic of knn_2level's and
+    grid_knn's fine level, ties to the lower index: (squared distances
+    (Q,k) ascending, idx (Q,k))."""
+    from dynamicfusion_body_tpu_torch.ops.knn import BIG, smallest_k
+
+    tie = torch.arange(len(p), dtype=torch.float32, device=p.device) * 1e-12
+    d2s, idxs = [], []
+    for s in range(0, len(q), chunk):
+        qc = q[s:s + chunk]
+        dx = qc[:, 0:1] - p[None, :, 0]
+        dy = qc[:, 1:2] - p[None, :, 1]
+        dz = qc[:, 2:3] - p[None, :, 2]
+        d2 = torch.where(valid[None, :], dx * dx + dy * dy + dz * dz, BIG)
+        idx = smallest_k(d2 + tie, k)
+        d2s.append(torch.gather(d2, 1, idx))
+        idxs.append(idx)
+    return torch.cat(d2s), torch.cat(idxs)
+
+
+def phase_modes(torch, warm, live, hyper, fresh):
+    """The correspondence modes of fusion_frame at 256³ on the bench scene,
+    from phase 7's post-warm-up state ``warm`` on ``live`` (phase 7's
+    first timed frame, whose (wall ms, stats) are ``fresh``): one frame
+    each with reuse_corr=True, approx_knn="2level", approx_knn=True and
+    use_grid_corr=True on the bench's settings, kernels on. K1 and K2 must
+    launch, every frame be finite with no mesh over its caps, the reuse
+    and bf16-keyed frames track and the reuse frame's final cost be within
+    REUSE_COST_MAX of the fresh frame's; the grid frame, without
+    correspondences, must keep its pose. The 2-level frame's tracking is
+    printed, not required: the JAX package's 2-level pools miss the
+    nearest live vertices of most of this scene's warped vertices (its
+    certificate flags them; the risk is printed below). Then, on the
+    frame-entry warped canonical vertices against the live mesh:
+    knn_2level and grid_knn held to a search by direct differences, the
+    bf16-keyed search's recall, and the k > 4 selection timed against the
+    stable sort it replaced. Returns the launches of the four frames."""
+    from dynamicfusion_body_tpu_torch.models.warp_field import (
+        neighbor_lookup, warp_points)
+    from dynamicfusion_body_tpu_torch.ops.grid_knn import grid_knn
+    from dynamicfusion_body_tpu_torch.ops.knn import (
+        _smallest_k_exact, knn, knn_2level, pairwise_sqdist, smallest_k)
+    from dynamicfusion_body_tpu_torch.ops.marching_cubes import marching_cubes
+    from dynamicfusion_body_tpu_torch.ops.mc_cuda import mc_case_cross
+    from dynamicfusion_body_tpu_torch.ops.trilerp_cuda import (
+        warp_trilerp_bricks_cached)
+    from dynamicfusion_body_tpu_torch.pipeline.frame import fusion_frame
+
+    modes = {"reuse_corr": dict(reuse_corr=True),
+             "2level": dict(approx_knn="2level"),
+             "approx": dict(approx_knn=True),
+             "grid": dict(use_grid_corr=True)}
+    kernels = (mc_case_cross, warp_trilerp_bricks_cached)
+    for kern in kernels:
+        kern.launches = 0
+    out = {}
+    for name, mode in modes.items():
+        v0, w0, wf0, lw0, mesh0 = warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        v, w, _, lw, st, mesh = fusion_frame(v0, w0, live, wf0, lw0,
+                                             canon_mesh=mesh0,
+                                             **dict(hyper, **mode))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        finite = bool(torch.isfinite(v).all() and torch.isfinite(w).all())
+        n_corr, cost = int(st.n_corr), float(st.cost_after[-1])
+        out[name] = dict(ms=ms, n_corr=n_corr, corr_risk=int(st.corr_risk),
+                         corr_refresh=int(st.corr_refresh), cost=cost,
+                         track=cost / max(n_corr, 1), finite=finite,
+                         mesh_overflow=bool(mesh["overflow"]),
+                         pose_kept=bool(torch.equal(lw, lw0)))
+        print(f"# mode {name}: {out[name]}")
+        check(finite, f"mode {name}: non-finite TSDF")
+        check(not bool(mesh["overflow"]), f"mode {name}: the canonical mesh "
+              "overflowed")
+        track = out[name]["track"]
+        if name in ("reuse_corr", "approx"):
+            check(n_corr > 0 and track < TRACK_MAX, f"mode {name}: tracking "
+                  f"lost ({n_corr} correspondences, {track:.3g} per corr)")
+        elif name == "grid" and n_corr == 0:
+            check(out[name]["pose_kept"], "mode grid: the pose moved "
+                  "without correspondences")
+        del v, w, lw, st, mesh
+    launches = {k.__name__: k.launches for k in kernels}
+    fresh_ms, fresh_st = fresh
+    fresh_cost = float(fresh_st.cost_after[-1])
+    print(f"# modes from the post-warm-up state: fresh (phase 7's first "
+          f"timed frame) {fresh_ms:.1f} ms, n_corr {int(fresh_st.n_corr)}, "
+          f"cost {fresh_cost:.4f}; launches of the four frames {launches}")
+    check(all(launches.values()), f"modes: launches {launches}")
+    check(out["reuse_corr"]["cost"] <= REUSE_COST_MAX * fresh_cost,
+          f"mode reuse_corr: final cost {out['reuse_corr']['cost']} above "
+          f"{REUSE_COST_MAX} x the fresh frame's {fresh_cost}")
+
+    # the candidate searches on the frame-entry warped vertices
+    _, _, wf0, lw0, mesh0 = warm
+    lm = marching_cubes(live, 0.0, vert_cap=hyper["live_vert_cap"],
+                        face_cap=hyper["live_face_cap"], with_normals=False,
+                        use_kernels=True)
+    p = lm["verts"]
+    lmask = torch.arange(len(p), device=p.device) < lm["n_verts"]
+    vmask = (torch.arange(len(mesh0["verts"]), device=p.device)
+             < mesh0["n_verts"])
+    nbr = neighbor_lookup(wf0, mesh0["verts"], hyper["knn_k"])
+    q = warp_points(wf0, mesh0["verts"], nbr, m_lw=lw0)
+    kc = max(4 * hyper["knn_k"], 16)
+    ref_d2, ref_i = direct_knn(torch, q, p, lmask, kc)
+    _, flat_i = knn(q, p, kc, valid=lmask)
+    d2l, i2l, risk = knn_2level(q, p, kc, qvalid=vmask, valid=lmask)
+    d_ref = torch.sqrt(ref_d2)
+    off = vmask & torch.any(d2l != d_ref, dim=1)
+    n_valid = int(vmask.sum())
+    print(f"# knn_2level kc {kc} over {n_valid} warped vertices x "
+          f"{int(lmask.sum())} live: risk {int(risk)}; distances differ "
+          f"from the direct search on {int(off.sum())} queries; indices "
+          f"equal to it on {float(torch.mean(torch.all(i2l == ref_i, 1)[vmask].float())):.4f}"
+          f", to the flat knn's on "
+          f"{float(torch.mean(torch.all(i2l == flat_i, 1)[vmask].float())):.4f}"
+          " of the queries")
+    check(int(off.sum()) <= int(risk), f"knn_2level differs from the direct "
+          f"search on {int(off.sum())} queries, more than its risk "
+          f"{int(risk)}")
+    _, ia = knn(q, p, kc, valid=lmask, approx=True)
+    same = torch.all(torch.sort(ia, 1).values == torch.sort(flat_i, 1).values,
+                     1)
+    print(f"# approx=True kc {kc}: index sets equal to the flat search's on "
+          f"{float(same[vmask].float().mean()):.4f} of the queries")
+
+    k, cell, cap = hyper["knn_k"], 16.0, 256
+    grid_n = (max(live.shape) + 15) // 16
+    gd, _, gf, govf = grid_knn(q, p, k, valid=lmask, cell=cell,
+                                cap_per_cell=cap, grid_n=grid_n)
+    c = torch.clamp((p / cell).to(torch.int32), 0, grid_n - 1).long()
+    pcell = ((c[:, 0] * grid_n + c[:, 1]) * grid_n + c[:, 2])[lmask]
+    count = torch.bincount(pcell, minlength=grid_n ** 3)
+    qc = torch.clamp(torch.floor((q - cell / 2) / cell).to(torch.int32), 0,
+                     grid_n - 2).long()
+    crowded = torch.zeros_like(vmask)
+    for dx in (0, 1):
+        for dy in (0, 1):
+            for dz in (0, 1):
+                cid = ((qc[:, 0] + dx) * grid_n + qc[:, 1] + dy) * grid_n + (
+                    qc[:, 2] + dz)
+                crowded |= count[cid] > cap
+    held = vmask & ~crowded
+    near = d_ref[:, :k] < cell / 2 - 1e-3
+    bad = held[:, None] & near & (~gf | (gd != d_ref[:, :k]))
+    print(f"# grid_knn k {k}, grid {grid_n}^3 of {cell:g}-voxel cells, cap "
+          f"{cap}: overflow {bool(govf)}, cells over the cap "
+          f"{int((count > cap).sum())} of {int((count > 0).sum())} occupied "
+          f"(most {int(count.max())} points); {int(held.sum())} of {n_valid} "
+          f"queries with no crowded cell, {int(bad.any(1).sum())} of them "
+          f"off the direct search within cell/2")
+    check(not bool(bad.any()), "grid_knn differs from the direct search "
+          "where no cell overflowed")
+
+    # the k > 4 selection (a float top-k, int64 keys on tied rows) against
+    # the stable sort it replaced, on one (chunk, P) block of the flat
+    # candidate search
+    chunk = max(256, min(8192, (1 << 27) // len(p)))
+    qb = q[:chunk]
+    d2 = torch.where(lmask[None, :], pairwise_sqdist(qb, p), torch.inf)
+    d2 = d2 + torch.arange(len(p), device=p.device) * 1e-12
+    want = torch.sort(d2, dim=1, stable=True).indices[:, :kc]
+    check(torch.equal(smallest_k(d2, kc), want)
+          and torch.equal(_smallest_k_exact(d2, kc), want),
+          "smallest_k differs from the stable sort")
+    topk_ms = cuda_ms(torch, lambda: smallest_k(d2, kc))
+    exact_ms = cuda_ms(torch, lambda: _smallest_k_exact(d2, kc))
+    sort_ms = cuda_ms(torch, lambda: torch.sort(d2, dim=1,
+                                                stable=True).indices[:, :kc])
+    search_ms = cuda_ms(torch, lambda: knn(q, p, kc, valid=lmask), reps=3)
+    n_chunks = -(-len(q) // chunk)
+    print(f"# k > 4 selection on a ({chunk}, {len(p)}) block: smallest_k "
+          f"{topk_ms:.3f} ms, its int64-key path on every row "
+          f"{exact_ms:.3f} ms, the stable sort {sort_ms:.3f} ms (x "
+          f"{n_chunks} blocks a search: {topk_ms * n_chunks:.1f} / "
+          f"{exact_ms * n_chunks:.1f} / {sort_ms * n_chunks:.1f} ms); the "
+          f"whole kc {kc} search {search_ms:.1f} ms")
+    return launches
 
 
 def config6_views(torch, dev):
     """meshes/original.obj, regularized, rendered from 8 yaw views at 512²
-    on the card (benchmarks/suite.py:53-72, dist 2.5, S=8). Returns (verts,
-    faces, depths (8,512,512) on the card, lws (8,3,4) numpy)."""
-    from dynamicfusion_body_tpu_torch.io.mesh_io import (
-        load_obj, regularize_mesh)
+    on the card by ``suite._render_views`` (benchmarks/suite.py:53-72,
+    dist 2.5, S=8). Returns (verts, faces, the maps as numpy as a caller
+    hands them, the maps stacked on the card, lws (8,3,4) numpy)."""
+    from dynamicfusion_body_tpu_torch.benchmarks import suite
 
-    verts, faces = load_obj(ROOT / "meshes" / "original.obj")
-    verts = regularize_mesh(verts)
+    verts, faces = suite.reference_mesh()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    depths, lws = render_views(torch, dev, verts, faces)
-    torch.cuda.synchronize()
+    maps, lws = suite._render_views(verts, faces, K6, N_VIEWS, IMG, IMG, dev)
+    depths = torch.from_numpy(np.stack(maps)).to(dev)
     hits = [int(torch.sum(d != 0)) for d in depths]
     check(min(hits) > 10000, f"renders with few hits: {hits}")
     print(f"# config 6: {len(verts)} verts {len(faces)} faces; 8 views "
           f"rendered in {time.perf_counter() - t0:.3f} s; hit pixels {hits}")
-    return verts, faces, depths, lws
-
-
-def render_views(torch, dev, verts, faces):
-    """The 8 yaw views of benchmarks/suite.py:53-72 (dist 2.5, 512², S=8)
-    of a mesh, rendered on the card: (depths (8,512,512), lws (8,3,4))."""
-    from dynamicfusion_body_tpu_torch.ops.transforms import rotation_matrix
-    from dynamicfusion_body_tpu_torch.render.raster import render_depth
-
-    tv = torch.from_numpy(np.ascontiguousarray(verts)).to(dev)
-    tf = torch.from_numpy(faces).long().to(dev)
-    fmask = torch.ones(len(faces), dtype=torch.bool, device=dev)
-    K = torch.from_numpy(K6).to(dev)
-    depths, lws = [], []
-    for i in range(N_VIEWS):
-        R = rotation_matrix(2 * np.pi * i / N_VIEWS, [0, 1, 0])[:3, :3]
-        t = np.array([0, 0, 2.5]) - R @ np.zeros(3)
-        lw = np.concatenate([R, t[:, None]], 1).astype(np.float32)
-        depths.append(render_depth(tv, tf, fmask, K,
-                                   torch.from_numpy(lw).to(dev), IMG, IMG,
-                                   S=8))
-        lws.append(lw)
-    return torch.stack(depths), np.stack(lws)
+    return verts, faces, maps, depths, np.stack(lws)
 
 
 def k5_projs(lws, ind, K=K6):
@@ -1438,68 +1609,43 @@ def profile_ingest(torch, fus, maps, lws):
           f"{busy:.4f} ms (busy {busy / wall:.1%}); top: {top}")
 
 
-def phase_config6(torch, dev, verts, faces, depths, lws):
+def phase_config6(torch, dev, verts, faces, maps, lws):
+    """benchmarks/suite.py config 6 at 256³ (suite.py:261-316) through the
+    port's ``suite.run_config6``: FusionDM's ingest of the 8 views, MC,
+    the observed vertices scored against the mesh; then one profiled
+    ingest."""
     from scipy.spatial import cKDTree
 
+    from dynamicfusion_body_tpu_torch.benchmarks import suite
     from dynamicfusion_body_tpu_torch.ops.fusion_cuda import fuse_depth_multi
-    from dynamicfusion_body_tpu_torch.benchmarks.suite import _sample_surface
-    from dynamicfusion_body_tpu_torch.ops.interp import trilinear
     from dynamicfusion_body_tpu_torch.ops.mc_cuda import mc_case_cross
-    from dynamicfusion_body_tpu_torch.pipeline.fusion import FusionDM
 
-    maps = list(depths.cpu().numpy())  # host maps, as a caller hands them
-    fus = FusionDM(TDIST6, K6, tsdf_res=RES, vert_cap=1 << 17,
-                   face_cap=1 << 18)
+    samples = suite._sample_surface(verts, faces, 300_000)
+    tree = cKDTree(samples)
     fuse_depth_multi.launches = 0
     mc_case_cross.launches = 0
-    fus.compute_live_tsdf(maps, list(lws), UseAutoAlignment=True,
-                          as_numpy=False)  # warm
-    times = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fus.compute_live_tsdf(maps, list(lws), UseAutoAlignment=True,
-                              as_numpy=False)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    line, fus, scored = suite.run_config6(dev, RES, maps, list(lws), K6,
+                                          tree, (1 << 17, 1 << 18))
+    secs = time.perf_counter() - t0
     profile_ingest(torch, fus, maps, lws)
-    fus.marching_cubes()
-    torch.cuda.synchronize()
     launches = (fuse_depth_multi.launches, mc_case_cross.launches)
     check(all(n > 0 for n in launches), f"config 6 launches K5/K1 {launches}")
     check(bool(torch.isfinite(fus.volume.values).all()), "non-finite TSDF")
-
-    # score the well-observed vertices only (fused weight >= 3), as
-    # benchmarks/suite.py:296-305 does: 8 yaw views leave regions unseen,
-    # and MC extracts the truncation shell there
-    m = fus._mesh
-    nv = int(m["n_verts"])
-    gv = m["verts"][:nv]
-    ind = fus._IND
-    wts, _ = trilinear(fus.volume.weights, gv)
-    obs = (wts >= 3.0).cpu().numpy()
-    wv = gv.cpu().numpy() @ ind[:3, :3].T + ind[:3, 3]
-    t0 = time.perf_counter()
-    samples = _sample_surface(verts, faces, 300_000)
-    scored = wv[obs] if obs.any() else wv
-    do, _ = cKDTree(samples).query(scored, k=1)
-    voxel = float(ind[0, 0])
-    mean, p95 = float(np.mean(do) / voxel), float(np.percentile(do, 95) / voxel)
     # how much of the body the score speaks for: the mesh overflows its cap
     # (MC keeps the first vertices in edge order), so the scored vertices
     # cover part of the surface only
+    voxel = float(fus._IND[0, 0])
     near, _ = cKDTree(scored).query(samples, k=1)
     covered = float(np.mean(near < voxel))
-    print(f"# config 6 at {RES}^3: ingest ms {[round(t, 3) for t in times]} "
-          f"(median {np.median(times):.3f}); verts {nv} (cap overflow "
-          f"{bool(m['overflow'])}), observed fraction {obs.mean():.4f} "
-          f"({int(obs.sum())} scored, within 1 voxel of {covered:.4f} of the "
-          f"surface samples); vertex error mean {mean:.4f} p95 {p95:.4f} "
-          f"voxels (voxel "
-          f"{voxel:.6f}); scoring {time.perf_counter() - t0:.2f} s; launches "
-          f"K5 {launches[0]} K1 {launches[1]}")
-    check(mean < 1.0 and p95 < 2.0,
-          f"config 6 vertex error mean {mean} p95 {p95} voxels")
+    print(f"# config 6 at {RES}^3 (suite.run_config6, {secs:.2f} s with the "
+          f"scoring): {json.dumps(line)}; cap overflow "
+          f"{bool(fus._mesh['overflow'])}; the scored vertices lie within 1 "
+          f"voxel of {covered:.4f} of the surface samples; launches K5 "
+          f"{launches[0]} K1 {launches[1]}")
+    check(line["value"] < 1.0 and line["p95_err_voxels"] < 2.0,
+          f"config 6 vertex error mean {line['value']} p95 "
+          f"{line['p95_err_voxels']} voxels")
     return launches
 
 
@@ -1539,92 +1685,41 @@ def phase_icp(torch, dev, depths, lws):
           f"{mc_case_cross.launches}")
 
 
-def phase_config7(torch, dev, verts, faces, depths0, lws):
+def phase_config7(torch, dev, verts, faces):
     """benchmarks/suite.py config 7 at 256³ (suite.py:341-496) through the
-    port's Fusion: the reference mesh's 8-view canonical TSDF, then per
-    bend a live TSDF fused on the same lattice and the reference flow
-    setupCorrespondences → solve → updateTSDF → update_graph. Scores the
-    observed canonical vertices' point-to-surface error per frame."""
-    from scipy.spatial import cKDTree
-
-    from dynamicfusion_body_tpu_torch.models.tsdf_volume import TsdfVolume
+    port's ``suite.run_config7``: the mesh's 8-view canonical TSDF, a
+    ``Fusion`` on it, then per bend (0.08, 0.16, 0.24 rad) a live TSDF and
+    setupCorrespondences → solve → updateTSDF → update_graph. Every
+    frame's TSDF must be finite, and the final surface error below the
+    untracked one."""
+    from dynamicfusion_body_tpu_torch.benchmarks import suite
     from dynamicfusion_body_tpu_torch.ops.fusion_cuda import fuse_depth_multi
-    from dynamicfusion_body_tpu_torch.ops.interp import trilinear
     from dynamicfusion_body_tpu_torch.ops.mc_cuda import mc_case_cross
     from dynamicfusion_body_tpu_torch.ops.trilerp_cuda import (
         warp_trilerp_bricks_cached)
-    from dynamicfusion_body_tpu_torch.pipeline.fusion import Fusion, FusionDM
-    from dynamicfusion_body_tpu_torch.tools._scene import make_bend
-    from dynamicfusion_body_tpu_torch.utils.profiling import PhaseTimer
 
-    bend = make_bend(verts)  # config 7's ground-truth bend
     kernels = (mc_case_cross, warp_trilerp_bricks_cached, fuse_depth_multi)
     for kern in kernels:
         kern.launches = 0
     warp_trilerp_bricks_cached.coord_launches = 0
-    t_start = time.perf_counter()
-    dm = FusionDM(TDIST6, K6, tsdf_res=RES, vert_cap=1 << 17,
-                  face_cap=1 << 18)
-    canon_v, canon_w = dm.compute_live_tsdf(list(depths0.cpu().numpy()),
-                                            list(lws), UseAutoAlignment=True,
-                                            as_numpy=False)
-    ind = dm._IND
-    voxel = float(ind[0, 0])
-    fus = Fusion(canon_v, TDIST6, subsample_rate=16 / 3, knn=3,
-                 marching_cubes_step_size=3, write_warpfield=False,
-                 vert_cap=1 << 17, face_cap=1 << 18, node_cap=4096,
-                 live_vert_cap=1 << 18, live_face_cap=1 << 19)
-    m = fus._mesh
-    nv = int(m["n_verts"])
-    gv = m["verts"][:nv]
-    obs = (trilinear(canon_w, gv)[0] >= 3.0).cpu().numpy()
-    gv = gv.cpu().numpy()
-    wv = gv @ ind[:3, :3].T + ind[:3, 3]
-    surf = np.concatenate([verts, verts[faces].mean(1),
-                           0.5 * (verts[faces[:, 0]] + verts[faces[:, 1]])])
-    torch.cuda.synchronize()
-    print(f"# config 7 at {RES}^3: canonical fused and Fusion built in "
-          f"{time.perf_counter() - t_start:.2f} s: {nv} canonical vertices "
-          f"({int(obs.sum())} observed), {int(fus._warp.num_active)} nodes")
-
-    def p2s(pts, ang):
-        return cKDTree(bend(surf, ang)).query(pts, k=1)[0]
-
-    timer = PhaseTimer()
-    errs = []
-    for ang in ANGLES7:
-        t0 = time.perf_counter()
-        with timer.phase("render+fuse live", sync=canon_v):
-            bent, _ = render_views(torch, dev, bend(verts, ang), faces)
-            fresh = TsdfVolume.create(RES, TDIST6, ind=dm.volume.ind)
-            live_v, _ = dm._fuse(fresh.values, fresh.weights, bent, lws)
-        with timer.phase("setupCorrespondences", sync=canon_v):
-            fus.setupCorrespondences(live_v, method="clpts", tolerance=5.0,
-                                     live_mc_step=2)
-        with timer.phase("solve", sync=fus._lw):
-            fus.solve(regularization_weight=0.5, method="clpts")
-        with timer.phase("updateTSDF", sync=fus.volume.values):
-            fus.updateTSDF()
-        with timer.phase("update_graph", sync=fus._lw):
-            fus.update_graph()
-        frame_s = time.perf_counter() - t0
-        check(bool(torch.isfinite(fus.volume.values).all()
-                   and torch.isfinite(fus.volume.weights).all()),
-              "config 7: non-finite TSDF")
-        tracked = fus.warp(gv, m_lw=fus._lw) @ ind[:3, :3].T + ind[:3, 3]
-        errs.append(float(np.mean(p2s(tracked[obs], ang)) / voxel))
-        print(f"# config 7 frame (bend {ang} rad): {frame_s:.2f} s; "
-              f"surface error {errs[-1]:.4f} voxels; nodes "
-              f"{int(fus._warp.num_active)}; correspondences "
-              f"{int(fus._corr_valid.sum()) if fus._corr_valid is not None else 0}")
+    c = suite.run_config7(dev, RES, verts, faces)
     launches = {k.__name__: k.launches for k in kernels}
-    untracked = float(np.mean(p2s(wv[obs], ANGLES7[-1])) / voxel)
-    split = "; ".join(f"{name} {s['mean_s']:.3f} s" for name, s in
-                      timer.summary().items())
-    print(f"# config 7 per-frame phase means: {split}")
+    vox = c["voxel"]
+    errs = [float(np.mean(e) / vox) for e in c["serr"]]
+    untracked = float(np.mean(c["untracked"]) / vox)
+    build = "; ".join(f"{k} {v['total_s']:.3f} s"
+                      for k, v in c["build"].items())
+    phases = "; ".join(f"{k} {v['mean_s']:.3f} s"
+                       for k, v in c["phases"].items())
+    print(f"# config 7 at {RES}^3 (suite.run_config7): construction "
+          f"{c['build_s']:.2f} s ({build}); {c['n_tracked']} observed "
+          f"canonical vertices; frames {c['frames_s']:.2f} s, per-frame "
+          f"phase means {phases}")
     print(f"# config 7: surface error per frame {[round(e, 4) for e in errs]} "
           f"voxels, untracked {untracked:.4f} (the README's TPU-era 2.6 "
-          f"voxels at 256^3, to check, not a gate); launches {launches}")
+          f"voxels at 256^3, to check, not a gate); finite {c['finite']}; "
+          f"launches {launches}")
+    check(all(c["finite"]), f"config 7: non-finite TSDF {c['finite']}")
     check(all(n > 0 for n in launches.values()),
           f"config 7 launches {launches}")
     check(warp_trilerp_bricks_cached.coord_launches == 0,
@@ -1669,10 +1764,11 @@ def main() -> int:
         print(f"# -- {name} done at {time.perf_counter() - t_run:.1f} s")
 
     rows = {}
-    # launches of each kernel on the paths it serves (bench, config 4,
-    # config 6, config 7, the profiling tools, the benchmark entry points),
-    # each path's counts set to 0 just before it; K4 (trilerp_bricks) and K6 (trilerp_ablation) serve
-    # the tools only
+    # launches of each kernel on the paths it serves (bench, the
+    # correspondence modes, config 4, config 6, config 7, the profiling
+    # tools, the benchmark entry points), each path's counts set to 0 just
+    # before it; K4 (trilerp_bricks) and K6 (trilerp_ablation) serve the
+    # tools only
     meta = {
         "mc_case_cross": ("mc_case_cross.cu", f"{PKG}/ops/mc_pallas.py:98"),
         "warp_trilerp_bricks_cached": (
@@ -1691,7 +1787,8 @@ def main() -> int:
     grids = {f"K3 C<={C}": info["warp_trilerp_bricks", C]["grid"]
              for C in K3_CANDIDATES}
     grids["K2"] = info["warp_trilerp_bricks_cached", None]["grid"]
-    canonical, lives, wf = bench_state(torch, dev)
+    sc, lives = bench_state(torch, dev)
+    canonical, wf = sc.canonical, sc.wf
     rows["mc_case_cross"] = phase_k1(torch, dev, canonical)
     rows["warp_trilerp_bricks_cached"] = phase_k2(torch, dev, lives, wf,
                                                   grids["K2"])
@@ -1709,8 +1806,7 @@ def main() -> int:
     phase_padded(torch, dev)
     phase_ragged(torch, dev, grids)
     stamp("K3, K4, padded lattice, ragged tail")
-    total["warp_trilerp_bricks"] = phase_config4(torch, dev, canonical,
-                                                 lives[1], wf)
+    total["warp_trilerp_bricks"] = phase_config4(torch, dev, sc)
     stamp("config 4")
 
     tdist = float(canonical.max())
@@ -1729,12 +1825,13 @@ def main() -> int:
     warp_trilerp_bricks_cached.coord_launches = 0
     torch.cuda.reset_peak_memory_stats()
     for _ in range(2):
-        state, _ = run_frame(torch, fusion_frame, state, lives[0], hyper)
-    times = []
+        state, _, _ = run_frame(torch, fusion_frame, state, lives[0], hyper)
+    warm, times, frame_stats = state, [], []
     for live in lives[1:4]:
         prev = state
-        state, ms = run_frame(torch, fusion_frame, state, live, hyper)
+        state, ms, stats = run_frame(torch, fusion_frame, state, live, hyper)
         times.append(ms)
+        frame_stats.append(stats)
     launches = (mc_case_cross.launches, warp_trilerp_bricks_cached.launches)
     check(all(n > 0 for n in launches), f"kernel launches {launches}")
     check(warp_trilerp_bricks_cached.coord_launches == 0,
@@ -1747,29 +1844,34 @@ def main() -> int:
           f"{launches[0]} K2 {launches[1]}, of which with coordinates "
           f"{warp_trilerp_bricks_cached.coord_launches}")
 
-    plain_state, plain_ms = run_frame(
+    plain_state, plain_ms, _ = run_frame(
         torch, fusion_frame, prev, lives[3], dict(hyper, use_kernels=False))
     adiff = torch.abs(state[0] - plain_state[0]).cpu().numpy()
     dev99 = float(np.percentile(adiff, 99.9))
     print(f"# plain arm {plain_ms:.1f} ms; |tsdf_kernels - tsdf_plain| "
           f"p99.9 {dev99:.6f} max {float(adiff.max()):.6f}")
     check(dev99 < GATE_DEV_P999, f"kernel arm deviates: p99.9 {dev99}")
-    del canonical, lives, wf, state, prev, plain_state
-    torch.cuda.empty_cache()
+    del state, prev, plain_state
     stamp("bench frames")
 
-    verts, faces, depths, lws = config6_views(torch, dev)
+    for name, n in phase_modes(torch, warm, lives[1], hyper,
+                               (times[0], frame_stats[0])).items():
+        total[name] += n
+    del sc, canonical, lives, wf, warm
+    torch.cuda.empty_cache()
+    stamp("correspondence modes")
+
+    verts, faces, maps, depths, lws = config6_views(torch, dev)
     rows["fuse_depth_multi"] = phase_k5(torch, dev, depths, lws)
-    k5_n, k1_n = phase_config6(torch, dev, verts, faces, depths, lws)
+    k5_n, k1_n = phase_config6(torch, dev, verts, faces, maps, lws)
     total["fuse_depth_multi"] += k5_n
     total["mc_case_cross"] += k1_n
     phase_icp(torch, dev, depths, lws)
     stamp("K5, config 6, ICP branch")
-    for name, n in phase_config7(torch, dev, verts, faces, depths,
-                                 lws).items():
+    for name, n in phase_config7(torch, dev, verts, faces).items():
         total[name] += n
     stamp("config 7")
-    del verts, faces, depths
+    del verts, faces, maps, depths
     torch.cuda.empty_cache()
 
     phase_bare_window(torch)

@@ -6,10 +6,10 @@ frames at bump phases 0.05·i, ``init_canonical(subsample_rate=1.5,
 node_cap=4096, mc_step=2)``, canonical caps 2^15/2^16, live caps
 2^17/2^18. ``--res`` scales the spheres and the caps with the lattice
 (``tools/_scene.py:bumpy``/``cap``), so that the tests run 32³; at 256³
-they are ``bench.py``'s own. The settings are ``bench.py:130-146`` with
-exact correspondences (``approx_knn=False``: the card has no
-``approx_max_k``), the kernels on the card and their plain twins on the
-CPU. A failing kernel raises: there is no fallback to other settings.
+they are ``bench.py``'s own. The settings are ``bench.py:130-146`` as
+the JAX bench runs them off the TPU (``approx_knn=False``: it sets the
+bf16-keyed search on the TPU only, ``bench.py:142``), the kernels on the
+card and their plain twins on the CPU. A failing kernel raises: there is no fallback to other settings.
 
 Timing keeps ``bench.py``'s chain, ``(T(6 frames) − T(1 frame)) / 5``,
 so that the metric means what the JAX bench's does. Each frame ends with
@@ -41,8 +41,8 @@ The gates (:func:`gates`): (1) p99.9 |tsdf_fast − tsdf_exact_same| < 0.5;
 huberized point-to-plane data cost) against the deep arm's: ratio
 < 1.10, or slack ≤ 1% of the pre-solve cost with ratio < 2; (3)
 pool_risk ≤ 1e-4·R³ and corr_risk ≤ 1% of the canonical vertices. The
-port runs fresh correspondences only (``reuse_corr=False``), so
-corr_risk and corr_refresh are 0 by construction.
+bench searches fresh correspondences every round (``reuse_corr=False``,
+``bench.py:133``), so corr_risk and corr_refresh are 0 by construction.
 
 The last line of standard output is ``bench.py``'s JSON line; the rest
 goes to standard error.

@@ -237,17 +237,24 @@ def config3(dev, res=96, img=IMG, caps=(1 << 15, 1 << 16),
                    "res": res})]
 
 
-def config4(dev, res=256):
+def config4_update(sc, weights, use_kernels: bool):
+    """Config 4's call: the cache-less non-rigid update of the bench scene
+    ``sc`` (``tools/_scene.py:bench_scene``) with ``weights``."""
+    return update_tsdf_nonrigid(
+        sc.canonical, weights, sc.live, sc.wf, sc.lw, k=3, tdist=sc.tdist,
+        brick=8, n_candidates=16, use_kernels=use_kernels)
+
+
+def config4(dev, res=256, scene=None):
     """The cache-less non-rigid TSDF update at res³ (``suite.py:193-226``):
-    3 timed calls after a warm one."""
-    sc = bench_scene(res, dev)
+    3 timed calls after a warm one, on ``scene`` when given (a
+    ``bench_scene`` at res³ already built)."""
+    sc = bench_scene(res, dev) if scene is None else scene
     use_kernels = dev.type == "cuda"
     zeros = torch.zeros_like(sc.canonical)
 
     def f():
-        return update_tsdf_nonrigid(
-            sc.canonical, zeros, sc.live, sc.wf, sc.lw, k=3, tdist=sc.tdist,
-            brick=8, n_candidates=16, use_kernels=use_kernels)
+        return config4_update(sc, zeros, use_kernels)
 
     f()
     sync(dev)
@@ -265,11 +272,43 @@ def config5(dev, res=256):
     return [bench.main(["--res", str(res), "--device", dev.type]).result]
 
 
+def run_config6(dev, res, depths, lws, K, tree, caps):
+    """Config 6 at one lattice: the 8 views ``depths`` fused rigidly at
+    res³ with mesh ``caps``, extracted, and scored against the mesh's
+    surface samples in ``tree``: the vertices seen with fused weight ≥ 3,
+    their distance to the mesh in voxels. Returns (the metric's line,
+    the ``FusionDM``, the scored vertices in world units)."""
+    fus = FusionDM(8.0 / res * 1.3, K, tsdf_res=res, vert_cap=caps[0],
+                   face_cap=caps[1], device=dev)
+    fus.compute_live_tsdf(depths, lws, UseAutoAlignment=True,
+                          as_numpy=False)
+    fus.marching_cubes()
+    m = fus._mesh
+    nv = int(m["n_verts"])
+    gv = m["verts"][:nv]
+    ind = fus._IND
+    wv = gv.cpu().numpy() @ ind[:3, :3].T + ind[:3, 3]
+    d, _ = tree.query(wv, k=1)
+    voxel = float(ind[0, 0])
+    wts, _ = trilinear(fus.volume.weights, gv)
+    obs = (wts >= 3.0).cpu().numpy()
+    do = d[obs] if obs.any() else d
+    line = {
+        "metric": f"config6_mesh_vertex_error_{res}",
+        "value": round(float(np.mean(do) / voxel), 3),
+        "unit": "voxels",
+        "mean_err_world": round(float(np.mean(do)), 5),
+        "p95_err_voxels": round(float(np.percentile(do, 95) / voxel), 3),
+        "n_verts": nv,
+        "observed_frac": round(float(obs.mean()), 3),
+    }
+    return line, fus, wv[obs] if obs.any() else wv
+
+
 def config6(dev, res=(64, 256), img=IMG):
     """``meshes/original.obj`` rendered from 8 views, fused rigidly at
-    res[0]³ and res[1]³, extracted, and scored (``suite.py:261-316``): the
-    vertices seen with fused weight ≥ 3, their distance to the mesh in
-    voxels."""
+    res[0]³ and res[1]³, extracted, and scored (``suite.py:261-316``):
+    :func:`run_config6` at each lattice."""
     from scipy.spatial import cKDTree
 
     verts, faces = reference_mesh()
@@ -279,31 +318,7 @@ def config6(dev, res=(64, 256), img=IMG):
     out = []
     for r, caps in ((res[0], (1 << 15, 1 << 16)),
                     (res[1], (1 << 17, 1 << 18))):
-        fus = FusionDM(8.0 / r * 1.3, K, tsdf_res=r, vert_cap=caps[0],
-                       face_cap=caps[1], device=dev)
-        fus.compute_live_tsdf(depths, lws, UseAutoAlignment=True,
-                              as_numpy=False)
-        fus.marching_cubes()
-        m = fus._mesh
-        nv = int(m["n_verts"])
-        gv = m["verts"][:nv]
-        ind = fus._IND
-        wv = gv.cpu().numpy() @ ind[:3, :3].T + ind[:3, 3]
-        d, _ = tree.query(wv, k=1)
-        voxel = float(ind[0, 0])
-        wts, _ = trilinear(fus.volume.weights, gv)
-        obs = (wts >= 3.0).cpu().numpy()
-        do = d[obs] if obs.any() else d
-        line = {
-            "metric": f"config6_mesh_vertex_error_{r}",
-            "value": round(float(np.mean(do) / voxel), 3),
-            "unit": "voxels",
-            "mean_err_world": round(float(np.mean(do)), 5),
-            "p95_err_voxels": round(float(np.percentile(do, 95) / voxel),
-                                    3),
-            "n_verts": nv,
-            "observed_frac": round(float(obs.mean()), 3),
-        }
+        line, _, _ = run_config6(dev, r, depths, lws, K, tree, caps)
         print(json.dumps(line), flush=True)
         out.append(line)
     return out
@@ -341,7 +356,8 @@ def run_config7(dev, res, verts, faces, img=IMG, tolerance=5.0,
     updateTSDF → update_graph. ``mc_step`` and ``live_mc_step`` default
     to the suite's (2 and 1 up to 64³, 3 and 2 above). Returns a dict of
     the per-frame surface and vertex errors (voxels), the untracked
-    error, the construction split and the per-frame phase means (s)."""
+    error, whether each frame's TSDF is finite, the construction split
+    and the per-frame phase means (s)."""
     from scipy.spatial import cKDTree
 
     mc_step = mc_step or (2 if res <= 64 else 3)
@@ -391,7 +407,7 @@ def run_config7(dev, res, verts, faces, img=IMG, tolerance=5.0,
 
     timer = PhaseTimer()
     t0 = time.perf_counter()
-    verr, serr = [], []
+    verr, serr, finite = [], [], []
     for ang in angles:
         with timer.phase("render+fuse live", sync=canon_v):
             depths, _ = _render_views(bend(verts, ang), faces, K, N_VIEWS,
@@ -411,11 +427,13 @@ def run_config7(dev, res, verts, faces, img=IMG, tolerance=5.0,
             fus.updateTSDF()
         with timer.phase("update_graph", sync=fus._lw):
             fus.update_graph()
+        finite.append(bool(torch.isfinite(fus.volume.values).all()
+                           & torch.isfinite(fus.volume.weights).all()))
         tracked = fus.warp(gv, m_lw=fus._lw) @ ind[:3, :3].T + ind[:3, 3]
         verr.append(np.linalg.norm(tracked - bend(wv, ang), axis=1)[obs])
         serr.append(p2s(tracked[obs], ang))
     return dict(
-        res=res, voxel=voxel, serr=serr, verr=verr,
+        res=res, voxel=voxel, serr=serr, verr=verr, finite=finite,
         untracked=p2s(wv[obs], angles[-1]), n_tracked=int(obs.sum()),
         frames_s=time.perf_counter() - t0, build_s=build_s,
         build=build.summary(), phases=timer.summary(),

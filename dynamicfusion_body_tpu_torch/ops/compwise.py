@@ -50,6 +50,14 @@ def dq_point_c(dq, p):
     return out[5:8]
 
 
+def dq_normal_c(dq, n):
+    """Rotation-only transform on component tuples (reference
+    core/util.py:74-76)."""
+    zero = torch.zeros_like(n[0])
+    rq = (dq[0], dq[1], dq[2], dq[3], zero, zero, zero, zero)
+    return dq_point_c(rq, n)
+
+
 def dq_normalize8_c(dq):
     """8-vector-norm normalization with identity fallback where the norm is
     zero or has underflowed (``dualquat.NORM2_MIN``; reference

@@ -113,3 +113,21 @@ def dq_blend(pos, node_pos, node_dq, node_w, mask=None):
         w = torch.where(mask, w, torch.zeros_like(w))
     blended = torch.sum(w[..., None] * node_dq, dim=-2)
     return dq_normalize8(blended)
+
+
+def warp_point(pos, node_pos, node_dq, node_w, normal=None, m_lw=None,
+               mask=None):
+    """DQB-skin a point (and its normal, if given) into the live frame:
+    blend the K per-point nodes, sandwich-transform the point, then apply
+    the global rigid DQ ``m_lw`` if given (reference ``warp``,
+    core/fusion.py:502-520). Returns the point, or (point, normal)."""
+    se3 = dq_blend(pos, node_pos, node_dq, node_w, mask=mask)
+    p = dq_transform_point(se3, pos)
+    if m_lw is not None:
+        p = dq_transform_point(m_lw, p)
+    if normal is None:
+        return p
+    n = dq_transform_normal(se3, normal)
+    if m_lw is not None:
+        n = dq_transform_normal(m_lw, n)
+    return p, n

@@ -1,5 +1,5 @@
-"""Trilinear TSDF interpolation — counterpart of
-``dynamicfusion_body_tpu/ops/interp.py:trilinear``.
+"""Trilinear TSDF and bilinear image interpolation — counterpart of
+``dynamicfusion_body_tpu/ops/interp.py``.
 
 Reference semantics core/util.py:102-137: floor/ceil corner gather, lerp
 over x then y then z, invalid when the query is outside ``[0, res-1]³``.
@@ -56,3 +56,23 @@ def trilinear_c(volume: torch.Tensor, px, py, pz):
     c0 = c00 * (1 - yd) + c01 * yd
     c1 = c10 * (1 - yd) + c11 * yd
     return c0 * (1 - zd) + c1 * zd, valid
+
+
+def bilinear(image: torch.Tensor, px: torch.Tensor, py: torch.Tensor):
+    """Bilinearly sample ``image`` (H,W) at column ``px``, row ``py``: the
+    reference OpenCL ``interpolation`` helper (core/fusion_dm.py:605-622),
+    corners (y,x), (y,x+1), (y+1,x), (y+1,x+1) from x = floor(px). Indices
+    are clamped for the gather; validity is the caller's mask."""
+    h, w = image.shape
+    x0 = torch.clamp(torch.floor(px).to(torch.int32), 0, w - 2).long()
+    y0 = torch.clamp(torch.floor(py).to(torch.int32), 0, h - 2).long()
+    wx = torch.clamp(px - x0.to(px.dtype), 0.0, 1.0)
+    wy = torch.clamp(py - y0.to(py.dtype), 0.0, 1.0)
+    flat = image.reshape(-1)
+
+    def g(iy, ix):
+        return flat[iy * w + ix]
+
+    up = g(y0, x0) * (1 - wx) + g(y0, x0 + 1) * wx
+    bot = g(y0 + 1, x0) * (1 - wx) + g(y0 + 1, x0 + 1) * wx
+    return up * (1 - wy) + bot * wy

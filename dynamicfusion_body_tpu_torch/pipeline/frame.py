@@ -9,8 +9,9 @@ non-rigid GN rounds with the reference's regularization relaxation,
 non-rigid TSDF fusion, and deformation-graph maintenance.
 
 The JAX package compiles the frame into one device program; the port runs
-it eagerly, reading the loop predicates (round activity, node insertion)
-on the host. Removing those syncs is later work.
+it eagerly, reading the loop predicates (round activity, node insertion,
+the cached correspondences' refresh) on the host. Removing those syncs is
+later work.
 """
 
 from __future__ import annotations
@@ -29,7 +30,12 @@ from ..solvers.nonrigid import (
     relaxation_step,
 )
 from ..solvers.rigid import solve_rigid
-from .correspondence import closest_point_correspondences
+from .correspondence import (
+    closest_point_correspondences,
+    closest_point_correspondences_grid,
+    correspondence_candidates,
+    correspondences_from_candidates,
+)
 
 
 class FrameStats(NamedTuple):
@@ -41,9 +47,21 @@ class FrameStats(NamedTuple):
     n_verts: torch.Tensor        # canonical mesh verts after the update
     overflow: torch.Tensor       # a mesh cap or the node pool saturated
     pool_risk: torch.Tensor      # voxels the 2-level pool cannot certify
-    corr_risk: torch.Tensor      # 0: only fresh searches are ported
-    corr_refresh: torch.Tensor   # 0: only fresh searches are ported
+    corr_risk: torch.Tensor      # vertices (over the rounds) whose cached
+                                 # candidates were used uncertified; 0 on
+                                 # the fresh and grid paths
+    corr_refresh: torch.Tensor   # rounds that dropped the cached candidates
+                                 # for a fresh search (certificate failed
+                                 # for > CORR_REFRESH_FRAC of the mesh)
     ell_overflow: torch.Tensor   # JᵀWJ contributions past the degree cap
+
+
+# When a round's drift certificate fails for more than this share of the
+# canonical mesh, the round drops the cached candidates and runs a fresh
+# search (the JAX package's value: uncertified cached matches left a
+# large-motion frame's warp far worse on a fresh-correspondence objective,
+# certified reuse did not).
+CORR_REFRESH_FRAC = 0.01
 
 
 def _build_caches(wf, vol_shape, brick, n_candidates, knn_k,
@@ -116,16 +134,17 @@ def fusion_frame(
 
     ``use_kernels`` is the JAX ``use_pallas``: marching cubes go through
     K1 and the TSDF update through K2 (kernels on CUDA tensors, their
-    twins on CPU tensors). Only fresh exact correspondences are ported:
-    ``reuse_corr=True`` and ``use_grid_corr=True`` raise, as does
-    ``approx_knn`` (ROADMAP.md Queue 1 item 11). ``gn_iters``/``cg_iters``
-    may be per-round tuples of length ``solve_iters``."""
-    if reuse_corr or use_grid_corr:
-        raise NotImplementedError(
-            "fusion_frame: only reuse_corr=False, use_grid_corr=False is "
-            "ported; the cached-candidate and grid correspondence paths are "
-            "ROADMAP.md Queue 1 item 11"
-        )
+    twins on CPU tensors). ``gn_iters``/``cg_iters`` may be per-round
+    tuples of length ``solve_iters``.
+
+    Correspondences, as in the JAX package: ``use_grid_corr`` the
+    grid-hash search every round; else ``reuse_corr`` (the default) one
+    candidate search of max(4·knn_k, 16) per frame at the frame-entry
+    warp, re-ranked every round under the drift certificate, with a fresh
+    search on a round whose certificate fails for more than
+    CORR_REFRESH_FRAC of the mesh (at least 8 vertices); else a fresh
+    search every round. ``approx_knn`` (False, True or ``"2level"``)
+    picks the search (``pipeline/correspondence.py``)."""
     live_vert_cap = vert_cap if live_vert_cap is None else live_vert_cap
     live_face_cap = face_cap if live_face_cap is None else live_face_cap
     n_vox = 1
@@ -158,16 +177,52 @@ def fusion_frame(
         step_size=live_mc_step, with_normals=False, use_kernels=use_kernels)
     lmask = torch.arange(live_vert_cap, device=dev) < live_mesh["n_verts"]
 
+    lverts = live_mesh["verts"]
+    zero_i = torch.zeros((), dtype=torch.long, device=dev)
+
+    def fresh(wv, wn):
+        if use_grid_corr:
+            return closest_point_correspondences_grid(
+                wv, wn, vmask, lverts, lmask, knn_k, tolerance,
+                grid_n=(max(live.shape) + 15) // 16)
+        return closest_point_correspondences(
+            wv, wn, vmask, lverts, lmask, knn_k, tolerance,
+            approx=approx_knn)
+
+    reuse = reuse_corr and not use_grid_corr
+    cand_risk = zero_i
+    if reuse:
+        # one candidate search per frame at the frame-entry warp; later
+        # rounds re-rank it (the reference re-queries its KDTree every
+        # round, core/fusion.py:371 → 251-276)
+        wv0, _ = WF.warp_points(wf, verts, nbr_idx, normals=normals,
+                                m_lw=lw_dq)
+        cand_idx, d_kc, cand_risk = correspondence_candidates(
+            wv0, vmask, lverts, lmask, kc=max(4 * knn_k, 16),
+            approx=approx_knn)
+        n_valid0 = torch.sum(vmask)
+        risk_cap = torch.clamp_min(
+            (CORR_REFRESH_FRAC * n_valid0.float()).long(), 8)
+
     def correspondences(wf_, lw_):
+        """(corr, valid, uncertified vertices, refreshed) of one round."""
         wv, wn = WF.warp_points(wf_, verts, nbr_idx, normals=normals,
                                 m_lw=lw_)
-        c, v, _ = closest_point_correspondences(
-            wv, wn, vmask, live_mesh["verts"], lmask, knn_k, tolerance,
-            approx=approx_knn)
-        return c, v
+        refresh = zero_i
+        if reuse:
+            c, v, _, risk = correspondences_from_candidates(
+                wv, wn, vmask, lverts, lmask, cand_idx, d_kc, wv0, knn_k,
+                tolerance)
+            # certificate-steered refresh: one host read a round (the JAX
+            # package's lax.cond); the fresh search runs only on such rounds
+            if not bool(risk > risk_cap):
+                return c, v, risk, zero_i
+            refresh = torch.ones_like(zero_i)
+        c, v, _ = fresh(wv, wn)
+        return c, v, zero_i, refresh
 
     # rigid presolve (core/fusion.py:350-364) on node-field pre-warped points
-    corr, cvalid = correspondences(wf, lw_dq)
+    corr, cvalid, risk0, refresh0 = correspondences(wf, lw_dq)
     pv, pn = WF.warp_points(wf, verts, nbr_idx, normals=normals)
     lw_dq, _ = solve_rigid(lw_dq, pv, pn, corr, cvalid, iterations=12)
     n_corr0 = torch.sum(cvalid)
@@ -195,13 +250,17 @@ def fusion_frame(
     act = True
     zero = torch.zeros((), device=dev)
     cbs, cbhs, cas, ellovs = [], [], [], []
+    corr_risk, corr_refresh = cand_risk + risk0, refresh0
     for r in range(solve_iters):
         if not act:  # the reference breaks out of its loop (405-412)
             cbs.append(zero)
             cbhs.append(zero)
             cas.append(zero)
             continue
-        corr_, cval_ = correspondences(wf.replace(node_dq=node_dq), lw_dq)
+        corr_, cval_, risk, refresh = correspondences(
+            wf.replace(node_dq=node_dq), lw_dq)
+        corr_risk = corr_risk + risk
+        corr_refresh = corr_refresh + refresh
         data_args = (verts, normals, corr_, cval_, nbr_idx, blend_wts)
         reg_args = (pair_i, pair_j, pair_v, rw * base_scale, pmask0)
         # damping warm-started from the previous round, clamped to 100×
@@ -260,8 +319,8 @@ def fusion_frame(
                   | live_mesh["overflow"] | (n_dropped > 0)
                   | (esc_dropped > 0)),
         pool_risk=pool_risk,
-        corr_risk=torch.zeros((), dtype=torch.long, device=dev),
-        corr_refresh=torch.zeros((), dtype=torch.long, device=dev),
+        corr_risk=corr_risk,
+        corr_refresh=corr_refresh,
         ell_overflow=(torch.sum(torch.stack(ellovs)) if ellovs
                       else torch.zeros((), dtype=torch.long, device=dev)),
     )

@@ -15,15 +15,17 @@ For each arm it prints two costs:
    cost and the valid correspondences beside it.
 
 Arms: ``fast`` (the bench's settings), ``exact`` (cg 32 and flat
-candidates) and the fast arm with one knob set to the exact or pinned
-deep arm's value: ``fast+cg32``, ``fast+flat_cand`` (the carried mesh's
-2-level candidate caches dropped, so the flat search really runs, in
-this arm and in ``exact``) and ``fast+deep`` (3 relaxation rounds of gn
-8). The JAX tool's ``fast+exact_knn`` and ``fast+fresh_corr`` arms have
-no counterpart yet: the port runs exact kNN and fresh correspondences
-only, so its fast arm is already both; the approximate and cached
-searches they switch off are ROADMAP.md Queue 1 item 11. The tool says
-so in its output.
+candidates) and the fast arm with one knob changed: ``fast+cg32``,
+``fast+flat_cand`` (the carried mesh's 2-level candidate caches dropped,
+so the flat search really runs, in this arm and in ``exact``),
+``fast+deep`` (3 relaxation rounds of gn 8) and ``fast+reuse_corr`` (the
+cached candidates with the drift certificate, ``reuse_corr=True``: the
+correspondence mode of the JAX tool's own fast arm, which leaves
+``reuse_corr`` at its default, ``tools/diag_gate.py:68-75``). The JAX
+tool's ``fast+exact_knn`` equals its ``fast`` off the TPU (``approx_knn =
+backend == "tpu"``, ``:72``), as it does on the card, where the bench
+runs exact kNN; its ``fast+fresh_corr`` is the port's ``fast``, because
+the port's fast arm is the bench's (fresh correspondences every round).
 
     python -m dynamicfusion_body_tpu_torch.tools.diag_gate
     python -m dynamicfusion_body_tpu_torch.tools.diag_gate --res 64 \\
@@ -37,8 +39,6 @@ from __future__ import annotations
 from ..benchmarks import bench
 from ..pipeline.fusion import resolve_device
 
-UNPORTED = ("fast+exact_knn", "fast+fresh_corr")
-
 
 def arm_settings(hyper: dict) -> dict:
     """{arm: (settings, drop the mesh's candidate caches)}."""
@@ -49,6 +49,7 @@ def arm_settings(hyper: dict) -> dict:
         "fast+cg32": (dict(hyper, cg_iters=32), False),
         "fast+flat_cand": (dict(hyper, exact_candidates=True), True),
         "fast+deep": (dict(hyper, gn_iters=8, solve_iters=3), False),
+        "fast+reuse_corr": (dict(hyper, reuse_corr=True), False),
     }
 
 
@@ -67,9 +68,6 @@ def main(argv=None) -> dict:
     raw0, rob0, nc0 = bench.track_energy(ctx, wf0.node_dq, lw0)
     print(f"# pre-solve tracking energy raw={float(raw0):.3f} "
           f"huber={float(rob0):.3f} ncorr={int(nc0)}", flush=True)
-    print(f"# arms {', '.join(UNPORTED)}: not run: the port has exact kNN "
-          "and fresh correspondences only (ROADMAP.md Queue 1 item 11)",
-          flush=True)
 
     results = {}
     settings = arm_settings(d.hyper)
@@ -82,11 +80,13 @@ def main(argv=None) -> dict:
         raw, rob, nc = bench.track_energy(ctx, out[2].node_dq, out[3])
         results[name] = dict(in_frame=bench.final_cost(out[4]),
                              huber=float(rob), raw=float(raw), ncorr=int(nc),
-                             ms=ms)
+                             corr_risk=int(out[4].corr_risk),
+                             corr_refresh=int(out[4].corr_refresh), ms=ms)
         r = results[name]
         print(f"{name:16s} in-frame final cost {r['in_frame']:10.4f}   "
               f"common-obj huber {r['huber']:10.4f} raw {r['raw']:10.4f} "
-              f"ncorr {r['ncorr']}   {ms:.1f} ms", flush=True)
+              f"ncorr {r['ncorr']} corr_risk {r['corr_risk']} corr_refresh "
+              f"{r['corr_refresh']}   {ms:.1f} ms", flush=True)
 
     if "exact" in results:
         ref = results["exact"]

@@ -3,13 +3,12 @@ per-CG cost.
 
 Port of ``tools/profile_solve.py``: on the bench canonical's stride-2
 mesh and field, warped by the field and config 4's global pose, against
-the live mesh, it times the exact correspondence search (``corr_exact``)
-and ``solve_nonrigid`` over the JAX grid of (GN, CG) iterations
+the live mesh, it times the exact correspondence search (``corr_exact``),
+the bf16-keyed one (``corr_approx``: ``approx=True``, an exact selection
+on the card as off the TPU in the JAX package) and ``solve_nonrigid`` on
+the exact correspondences over the JAX grid of (GN, CG) iterations
 ``(1,1) (1,4) (1,16) (2,16) (4,16) (8,16) (8,4)``
-(``profile_solve.py:97-100``), with ``dense_pairs`` as there. The JAX
-``corr_approx`` row has no counterpart: the H100 has no ``approx_max_k``
-and the port's ``knn(approx=True)`` raises, so the tool says so instead.
-The solve is host-bound (one host-read predicate per GN step and LM try),
+(``profile_solve.py:97-100``), with ``dense_pairs`` as there. The solve is host-bound (one host-read predicate per GN step and LM try),
 so its CUDA-event time includes the card's idle gaps; ``--trace`` gives
 the busy share.
 
@@ -50,8 +49,9 @@ def main(argv=None) -> dict:
             wv, wn, ms.vmask, lm["verts"], ms.lmask, KNN_K, TOLERANCE)
 
     t("corr_exact", corr_exact)
-    print("# corr_approx: no row; the H100 has no approx_max_k and "
-          "knn(approx=True) raises", flush=True)
+    t("corr_approx", lambda: closest_point_correspondences(
+        wv, wn, ms.vmask, lm["verts"], ms.lmask, KNN_K, TOLERANCE,
+        approx=True))
     corr, cvalid, _ = corr_exact()
     data = (mesh["verts"], mesh["normals"], corr, cvalid, ms.nbr_idx,
             ms.blend)

@@ -142,18 +142,6 @@ def test_fusion_frame_matches_jax(scene, frame, use_kernels):
                    != np.asarray(want[5]["warp_sel"])) < 1e-2
 
 
-def test_unported_branches_raise(scene):
-    state = port_state(scene["frames"][0][0])
-    live = T(scene["frames"][0][1])
-    for kw in (dict(reuse_corr=True), dict(use_grid_corr=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TF.fusion_frame(*state[:2], live, *state[2:4],
-                            **dict(scene["h"], **kw))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TF.fusion_frame(*state[:2], live, *state[2:4],
-                        **dict(scene["h"], approx_knn=True))
-
-
 def test_large_volume_guard():
     """tests/test_frame.py:130: > 64M voxels is refused before any work
     (meta tensors: nothing is allocated). The message quotes the port's

@@ -171,13 +171,6 @@ def test_knn_matches_jax(rng, k, masked):
     assert same.mean() > 0.99
 
 
-def test_knn_approx_not_ported():
-    x = torch.zeros((4, 3))
-    for approx in (True, "2level"):
-        with pytest.raises(NotImplementedError):
-            knn(x, x, 2, approx=approx)
-
-
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_radius_subsample_matches_jax_and_oracle(seed):
     rng = np.random.RandomState(seed)

@@ -18,8 +18,8 @@ import torch
 from dynamicfusion_body_tpu_torch.ops.trilerp_cuda import (
     ABLATION_MODES, ABLATION_THREADS)
 from dynamicfusion_body_tpu_torch.tools import (
-    _scene, _timing, profile_frame, profile_mc, profile_solve,
-    profile_trilerp, profile_upd)
+    _scene, _timing, profile_corr5, profile_frame, profile_mc,
+    profile_solve, profile_trilerp, profile_upd)
 from dynamicfusion_body_tpu_torch.utils.profiling import (
     BLOCK, DeviceTrace, device_trace)
 
@@ -37,7 +37,7 @@ ROWS = {
         "k3_no_coords", "trilerp_only_k4", "trilerp_only_t128",
         "trilerp_only_t256", "trilerp_only_t512", "merge_running_average",
         "config4_update", "config4_candidates", "config4_merge"],
-    profile_solve: ["corr_exact"] + [
+    profile_solve: ["corr_exact", "corr_approx"] + [
         f"solve_gn{gn}_cg{cg}" for gn, cg in profile_solve.GRID],
     profile_frame: [
         "mc_live", "mc_canon_step2", "correspondence", "rigid_solve_12",
@@ -46,6 +46,8 @@ ROWS = {
         "update_graph"],
     profile_mc: ["mc_full", "mc_case_cross", "mc_vertices", "mc_faces",
                  "mc_normals"],
+    profile_corr5: ["knn_exact_kc16", "knn_approx_kc16"] + [
+        f"knn_2lvl_c{c}_p{p}" for c, p in profile_corr5.POOLS],
 }
 
 

@@ -110,16 +110,19 @@ def test_config3_matches_jax():
 
 
 def test_diag_gate_one_arm(capsys):
+    """The arm of the JAX tool's correspondence mode (cached candidates);
+    every arm runs, none is reported as not run."""
     res = diag_gate.main(["--res", str(RES), "--device", "cpu", "--arm",
-                          "fast"])
-    assert list(res) == ["fast"]
-    r = res["fast"]
+                          "fast+reuse_corr"])
+    assert list(res) == ["fast+reuse_corr"]
+    r = res["fast+reuse_corr"]
     assert r["ncorr"] > 0
     assert all(np.isfinite(r[k]) and r[k] >= 0
                for k in ("in_frame", "huber", "raw"))
+    assert r["corr_risk"] >= 0 and 0 <= r["corr_refresh"] <= 2
     out = capsys.readouterr().out
-    assert "fast+exact_knn, fast+fresh_corr: not run" in out
-    assert "common-obj huber" in out
+    assert "not run" not in out
+    assert "common-obj huber" in out and "corr_refresh" in out
 
 
 def test_diag_config7_one_arm():
