@@ -11,9 +11,10 @@
   selftest    ← TEST_UTIL: DQ/trilerp numeric checks, asserted.
 
 ``fusion-dm``, ``sequence``, ``dummy`` and ``selftest`` run on the card
-unless ``--device cpu`` is given. Correspondences are closest points
-only: ``sequence --method cnn`` / ``--cnn`` raise (ROADMAP Queue 1 item
-15).
+unless ``--device cpu`` is given. ``sequence --cnn --method cnn`` finds
+correspondences with the DHBC network (``--cnn-weights`` an npz from
+``tools/train_dhbc.py`` or the JAX package, else random weights;
+``--cnn-image-size`` its render size, 512 by default).
 
 Run: python -m dynamicfusion_body_tpu_torch.cli <subcommand> [options]
 """
@@ -81,6 +82,7 @@ def cmd_sequence(args):
         vol0, float(vol0.max()), subsample_rate=args.subsample_rate,
         knn=args.knn, marching_cubes_step_size=args.mc_step,
         verbose=args.verbose, use_cnn=args.cnn,
+        cnn_weights=args.cnn_weights, cnn_image_size=args.cnn_image_size,
         warpfield_path=args.out_dir, vert_cap=args.vert_cap,
         face_cap=args.face_cap, node_cap=args.node_cap, device=args.device,
     )
@@ -219,6 +221,9 @@ def main(argv=None):
     sq.add_argument("--mc-step", type=int, default=2)
     sq.add_argument("--method", default="clpts", choices=["clpts", "cnn"])
     sq.add_argument("--cnn", action="store_true")
+    sq.add_argument("--cnn-weights", default=None,
+                    help="DHBC weights npz (default: random weights)")
+    sq.add_argument("--cnn-image-size", type=int, default=512)
     sq.add_argument("--reg-weight", type=float, default=0.5)
     # mesh and node-pool capacities (config.CapacityConfig's defaults); the
     # solver's tables and the correspondence search scale with them

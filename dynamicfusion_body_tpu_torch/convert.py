@@ -7,9 +7,15 @@ packages can compute from one state.
 Index arrays become int64, masks bool; the packed warp-selection slots
 stay int32, as the K2 kernel reads them. The tensors go to the card
 unless the caller asks for another device.
+
+The DHBC network's Flax parameters, flattened to ``params/_Conv_{i}/
+Conv_0/kernel|bias`` (the npz weights format), become the port module's
+``state_dict`` (``convs.{i}.weight|bias``; HWIO kernels to OIHW) and back.
 """
 
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import torch
@@ -91,3 +97,43 @@ def load_fusion_state(fus, np_state) -> None:
     fus._nbr_idx = _t(np_state["nbr_idx"], torch.int64, dev)
     fus._blend_wts = _t(np_state["blend_wts"], torch.float32, dev)
     fus._upd_cache = None
+
+
+_DHBC_FLAX = re.compile(r"params/_Conv_(\d+)/Conv_0/(kernel|bias)")
+_DHBC_TORCH = re.compile(r"convs\.(\d+)\.(weight|bias)")
+
+
+def dhbc_flax_key(key: str) -> str:
+    """The Flax path of a DHBC ``state_dict`` key."""
+    i, kind = _DHBC_TORCH.fullmatch(key).groups()
+    return f"params/_Conv_{i}/Conv_0/{'kernel' if kind == 'weight' else 'bias'}"
+
+
+def dhbc_state_from_flax(flat, device="cuda") -> dict:
+    """The DHBC module's ``state_dict`` from Flax parameters flattened to
+    ``{path: numpy array}`` (``flax.traverse_util.flatten_dict(params,
+    sep="/")``, or an npz's arrays); entries that are not parameters (the
+    npz markers) are skipped."""
+    out = {}
+    for k, v in flat.items():
+        m = _DHBC_FLAX.fullmatch(k)
+        if m is None:
+            continue
+        v = np.asarray(v, dtype=np.float32)
+        if m.group(2) == "kernel":
+            out[f"convs.{m.group(1)}.weight"] = _t(v.transpose(3, 2, 0, 1),
+                                                  torch.float32, device)
+        else:
+            out[f"convs.{m.group(1)}.bias"] = _t(v, torch.float32, device)
+    return out
+
+
+def dhbc_state_to_flax(state) -> dict:
+    """The inverse of :func:`dhbc_state_from_flax`: ``{Flax path: numpy
+    array}`` with HWIO kernels."""
+    out = {}
+    for k, v in state.items():
+        a = v.detach().cpu().numpy()
+        out[dhbc_flax_key(k)] = (a.transpose(2, 3, 1, 0) if a.ndim == 4
+                                 else a)
+    return out

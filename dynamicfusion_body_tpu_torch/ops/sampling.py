@@ -1,5 +1,6 @@
-"""Greedy radius subsample — counterpart of
-``dynamicfusion_body_tpu/ops/sampling.py:radius_subsample``.
+"""Greedy radius subsample and furthest-point sampling — counterparts of
+``dynamicfusion_body_tpu/ops/sampling.py:radius_subsample`` and
+``:furthest_point_sample``.
 
 Reference ``uniform_sample`` (core/util.py:27-47): greedy first-fit in
 index order — take the first remaining point, drop every point within
@@ -66,3 +67,27 @@ def radius_subsample(points, radius, capacity: int, valid=None):
     chosen = keep[torch.nonzero(selected).flatten()[:capacity]]
     out[: chosen.numel()] = chosen
     return out, torch.tensor(chosen.numel(), device=dev)
+
+
+def furthest_point_sample(points, n_samples: int, start_idx: int = 0):
+    """Deterministic FPS: iteratively pick the point furthest from the set
+    (reference core/meshutil.py:72-90, from a deterministic start). Each
+    of the ``n_samples`` steps folds the newest pick into every point's
+    nearest-pick distance; ties go to the first maximum, as
+    ``jnp.argmax``'s. Returns (indices (n_samples,) int64, assign (N,)
+    int64: the step whose pick is each point's nearest, the first on a
+    tie)."""
+    n = points.shape[0]
+    dev = points.device
+    idxs = torch.zeros(n_samples, dtype=torch.long, device=dev)
+    idxs[0] = start_idx
+    d2 = torch.full((n,), 1e10, dtype=points.dtype, device=dev)
+    assign = torch.zeros(n, dtype=torch.long, device=dev)
+    for i in range(n_samples):
+        nd2 = torch.sum((points - points[idxs[i]]) ** 2, dim=-1)
+        upd = nd2 < d2
+        d2 = torch.where(upd, nd2, d2)
+        assign = torch.where(upd, i, assign)
+        if i + 1 < n_samples:
+            idxs[i + 1] = torch.argmax(d2)
+    return idxs, assign

@@ -47,7 +47,7 @@ from ..solvers.nonrigid import (
     relaxation_step,
 )
 from ..solvers.rigid import solve_rigid
-from .correspondence import closest_point_correspondences
+from .correspondence import closest_point_correspondences, prune_by_plane_cost
 from .frame import _build_caches
 
 IDENTITY_DQ = np.array([1, 0, 0, 0, 0, 0, 0, 0], dtype=np.float32)
@@ -321,10 +321,11 @@ class Fusion:
     ``tsdf`` is the canonical volume (a 3-D numpy array or tensor); its
     shape need not be a multiple of the brick (``updateTSDF`` pads the
     canonical volume and hands the live one over as it is).
-    Correspondences are closest points only: ``use_cnn=True`` raises, as
-    does ``setupCorrespondences(method="cnn")`` (the CNN path is ROADMAP
-    Queue 1 item 15); ``cnn_image_size``, ``cnn_weights`` and
-    ``cnn_normalize_input`` are accepted for the JAX signature."""
+    ``use_cnn=True`` builds the learned correspondences
+    (``pipeline/cnn_correspondence.py``) on this device from
+    ``cnn_weights`` (an npz, or None for random weights),
+    ``cnn_image_size`` and ``cnn_normalize_input`` (None: the npz's
+    recorded input scale)."""
 
     def __init__(
         self,
@@ -347,10 +348,6 @@ class Fusion:
         live_face_cap=None,
         device="cuda",
     ):
-        if use_cnn:
-            raise NotImplementedError(
-                "Fusion(use_cnn=True): the CNN correspondence path is not "
-                "ported yet (ROADMAP.md Queue 1 item 15); use clpts")
         self.device = resolve_device(device)
         tsdf = self._tensor(tsdf)
         if tsdf.dim() != 3:
@@ -374,6 +371,13 @@ class Fusion:
         self._live_vert_cap = live_vert_cap or vert_cap
         self._live_face_cap = live_face_cap or face_cap
         self._node_cap = node_cap
+        self._cnn = None
+        if use_cnn:
+            from .cnn_correspondence import CnnCorrespondence
+
+            self._cnn = CnnCorrespondence(
+                weights_npz=cnn_weights, image_size=cnn_image_size,
+                normalize_input=cnn_normalize_input, device=self.device)
         self.volume = TsdfVolume(
             values=tsdf, weights=torch.zeros_like(tsdf),
             ind=torch.eye(4, dtype=torch.float32, device=self.device))
@@ -468,17 +472,16 @@ class Fusion:
     def setupCorrespondences(self, curr_tsdf, method="cnn",
                              prune_result=True, tolerance=0.2,
                              live_mc_step=1):
-        """Closest-point correspondences against the live surface
-        (reference core/fusion.py:243-313). ``live_mc_step`` is the live
-        mesh's extraction stride (the reference's 1; 2 bounds the live
-        vertex pool at 256³). ``tolerance`` and ``live_mc_step`` are reused
-        by ``solve``'s refreshes. ``prune_result`` belongs to the CNN path
-        (ROADMAP.md Queue 1 item 15), which ``method="cnn"`` asks for and
-        which raises."""
-        if method != "clpts":
-            raise NotImplementedError(
-                f"setupCorrespondences(method={method!r}): only 'clpts' is "
-                "ported; the CNN path is ROADMAP.md Queue 1 item 15")
+        """Correspondences against the live surface (reference
+        core/fusion.py:243-313). Closest points on the warped canonical
+        mesh, unless ``method`` is not "clpts" and the driver was built
+        with ``use_cnn=True``: then feature-space matches of the UNWARPED
+        canonical mesh against the live one, pruned by the point-to-plane
+        cost on the warped mesh when ``prune_result`` is set.
+        ``live_mc_step`` is the live mesh's extraction stride (the
+        reference's 1; 2 bounds the live vertex pool at 256³).
+        ``tolerance`` and ``live_mc_step`` are reused by ``solve``'s
+        refreshes."""
         self._corr_tolerance = float(tolerance)
         self._corr_live_mc_step = int(live_mc_step)
         self._curr_tsdf = self._tensor(curr_tsdf)
@@ -488,10 +491,19 @@ class Fusion:
         vmask = self._vmask(self._mesh, self._vert_cap)
         lmask = self._vmask(live, self._live_vert_cap)
         wv, wn = self._warped_mesh(m_lw=self._lw)
-        if self._verbose:
-            print("Using closest pts method for finding correspondences...")
-        corr, valid, _ = closest_point_correspondences(
-            wv, wn, vmask, live["verts"], lmask, self._knn, tolerance)
+        if self._cnn is None or method == "clpts":
+            if self._verbose:
+                print("Using closest pts method for finding "
+                      "correspondences...")
+            corr, valid, _ = closest_point_correspondences(
+                wv, wn, vmask, live["verts"], lmask, self._knn, tolerance)
+        else:
+            if self._verbose:
+                print("Using cnn method for finding correspondences...")
+            corr, valid = self._cnn.match(self._mesh, live, vmask, lmask)
+            if prune_result:
+                valid, _ = prune_by_plane_cost(wv, wn, corr, valid,
+                                               tolerance)
         self._correspondences = corr
         self._corr_valid = valid
         if self._verbose:

@@ -181,11 +181,21 @@ def test_queries_and_live_mesh_match_jax(tmp_path):
 
 
 def test_cnn_correspondences_raise():
+    """Nothing raises for the CNN path any more: ``use_cnn=True`` builds
+    the learned correspondences on the driver's device, and
+    ``method="cnn"`` on a driver built without them takes the closest
+    points, as the JAX driver does (its ``self._cnn is None`` branch)."""
     vol = ellipsoid_levelset(5, 7, 9)[:-1]
-    with pytest.raises(NotImplementedError, match="item 15"):
-        TFusion(vol, float(vol.max()), use_cnn=True, device="cpu")
-    tf = TFusion(vol, float(vol.max()), marching_cubes_step_size=1,
-                 subsample_rate=2, vert_cap=2048, face_cap=4096,
-                 node_cap=64, write_warpfield=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tf.setupCorrespondences(vol, method="cnn")
+    kw = dict(marching_cubes_step_size=1, subsample_rate=2, vert_cap=2048,
+              face_cap=4096, node_cap=64, write_warpfield=False,
+              device="cpu")
+    cnn = TFusion(vol, float(vol.max()), use_cnn=True, cnn_image_size=32,
+                  **kw)
+    assert cnn._cnn is not None and cnn._cnn.device.type == "cpu"
+    assert cnn._cnn.image_size == 32 and cnn._cnn.normalize_input
+    tf = TFusion(vol, float(vol.max()), **kw)
+    assert tf._cnn is None
+    want = tf.setupCorrespondences(vol, method="clpts")
+    got = tf.setupCorrespondences(vol, method="cnn")
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
