@@ -128,6 +128,25 @@ Phases, each of which raises on failure (exit code 1):
      those weights on config 7's 256³ scene (the first bend): finite, with
      valid correspondences, its surface error printed beside config 7's
      closest-point frame; K1, K2 and K5 launched.
+  16. (run after phase 13) the 512³ bench (the port's
+     benchmarks/bench512.py): the Fusion driver built on the first of its
+     four 512³ volumes and two frames, each phase's synced wall, the peak
+     device memory and its JSON line printed; then one fused frame
+     (fusion_frame(allow_large=True), bench512 --fused) on the same
+     volumes; K1 and K2 launched, the TSDFs finite;
+  17. K1, K2 and K5 at 512³ against their twins, the count of unequal
+     elements printed and held to 0: K1 on Fusion's canonical volume
+     and a live volume, whole and at the path's strides 4 and 2; K2 with
+     Fusion's update inputs (node field, pose, caches, mip); K5 fusing
+     config 6's 8 views of 512² into an empty 512³ volume; each timed
+     beside its twin and its bound;
+  18. the sharded frame (parallel/frame_sharded.py) at world size 1 on
+     NCCL, in process through parallel/launch.py, on the bench's 256³
+     scene (init and one frame), held against init_canonical +
+     fusion_frame by the JAX package's tests/test_frame_sharded.py:75-97
+     criteria (radius rtol 1e-6, equal n_corr, costs rtol 0.05 before and
+     0.10 after, a descent, p99.9 |Δvalues| < 0.25, nodes within 16); its
+     synced wall printed.
 The last lines are the kernel table as JSON, the card, then
 ``{"ok": true, "device": {...}}``. No result is printed without a GPU.
 """
@@ -1543,6 +1562,239 @@ def phase_k5(torch, dev, depths, lws):
     return row
 
 
+def phase_bench512(torch, dev):
+    """The 512³ bench's main path (the port's benchmarks/bench512.py):
+    ``Fusion`` built on the first volume, then two frames; then one fused
+    frame (fusion_frame(allow_large=True), ``bench512 --fused``) on the
+    same volumes; K1 and K2 must have launched, the TSDFs be finite.
+    Returns (the Fusion run's report, the K1/K2 launches of both)."""
+    from dynamicfusion_body_tpu_torch.benchmarks import bench512
+    from dynamicfusion_body_tpu_torch.ops.mc_cuda import mc_case_cross
+    from dynamicfusion_body_tpu_torch.ops.trilerp_cuda import (
+        warp_trilerp_bricks_cached)
+
+    mc_case_cross.launches = 0
+    warp_trilerp_bricks_cached.launches = 0
+    rep, _ = quiet(lambda: bench512.run(512, dev, n_frames=2))
+    launches = {"mc_case_cross": mc_case_cross.launches,
+                "warp_trilerp_bricks_cached":
+                    warp_trilerp_bricks_cached.launches}
+    check(all(launches.values()), f"bench512 launches {launches}")
+    vals = rep.fus.volume.values
+    check(bool(torch.isfinite(vals).all()), "bench512: non-finite TSDF")
+    check(int(rep.fus._warp.num_active) > 0, "bench512: no nodes")
+    fused, _ = quiet(lambda: bench512.run_fused(512, dev, rep.vols))
+    check(fused.ok and int(fused.stats.n_corr) > 0,
+          f"bench512 --fused: {fused.error}")
+    launches = {"mc_case_cross": mc_case_cross.launches,
+                "warp_trilerp_bricks_cached":
+                    warp_trilerp_bricks_cached.launches}
+    print(f"# bench512 (2 frames at 512^3): setup {rep.setup_s:.3f} s "
+          f"(construct_graph {rep.graph_s:.3f} s); frames "
+          + "; ".join(f"{w:.3f} s (" + ", ".join(
+              f"{k} {v:.3f}" for k, v in ph.items()) + ")"
+              for w, ph in zip(rep.walls, rep.frames))
+          + f"; peak device memory {rep.peak_gib:.2f} GiB; nodes "
+          f"{int(rep.fus._warp.num_active)}; launches {launches}; "
+          f"{json.dumps(rep.result)}")
+    return rep, launches
+
+
+def phase_sharded(torch, dev):
+    """The sharded frame (parallel/frame_sharded.py) at world size 1 on
+    NCCL, in process through parallel/launch.py, on the bench's 256³
+    scene (init and one frame, the bench's settings), held against the
+    port's init_canonical + fusion_frame on the same inputs by the
+    criteria of the JAX package's tests/test_frame_sharded.py:75-97."""
+    from dynamicfusion_body_tpu_torch.parallel import launch, ranks
+    from dynamicfusion_body_tpu_torch.pipeline.frame import (
+        fusion_frame, init_canonical)
+    from dynamicfusion_body_tpu_torch.tools._scene import bumpy
+
+    canonical = bumpy(RES, (128, 128, 128), 0.0)
+    live = bumpy(RES, (130, 129, 128), 0.05)
+    tdist = float(canonical.max())
+    lw = np.array(LW_REF, np.float32)
+    caps = dict(vert_cap=1 << 15, face_cap=1 << 16)
+    init_kw = dict(subsample_rate=1.5, node_cap=4096, mc_step=2, **caps)
+    hyper = dict(regularization_weight=0.5, knn_k=3, tdist=tdist, mc_step=2,
+                 solve_iters=1, gn_iters=12, cg_iters=16, tolerance=5.0,
+                 n_candidates=16, reuse_corr=False, **caps,
+                 live_vert_cap=1 << 17, live_face_cap=1 << 18)
+    t0 = time.perf_counter()
+    out = launch.run(ranks.fusion_frames, 1,
+                     (canonical, [live], lw, init_kw, hyper), backend="nccl")
+    total_s = time.perf_counter() - t0
+    f = out["frames"][0]
+    st_s = f["stats"]
+
+    values = torch.from_numpy(canonical).to(dev)
+    wf_c, rad_c = init_canonical(values, **init_kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    v_c, _, _, _, st_c, _ = fusion_frame(
+        values, torch.zeros_like(values), torch.from_numpy(live).to(dev),
+        wf_c, torch.from_numpy(lw).to(dev), use_kernels=True, **hyper)
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    cb_s, ca_s = st_s.cost_before, st_s.cost_after
+    cb_c, ca_c = (st_c.cost_before.cpu().numpy(),
+                  st_c.cost_after.cpu().numpy())
+    dv = np.abs(f["values"] - v_c.cpu().numpy())
+    p999 = float(np.percentile(dv, 99.9))
+    n_s, n_c = int(st_s.n_nodes), int(st_c.n_nodes)
+    print(f"# sharded frame, world size 1 on NCCL, {RES}^3: frame "
+          f"{f['wall_s']:.3f} s synced (init + frame + gathers "
+          f"{total_s:.3f} s), fusion_frame {single_s:.3f} s; radius "
+          f"{float(out['radius']):.6f} / {float(rad_c):.6f}; n_corr "
+          f"{int(st_s.n_corr)} / {int(st_c.n_corr)}; cost before "
+          f"{cb_s} / {cb_c}, after {ca_s} / {ca_c}; |dvalues| p99.9 "
+          f"{p999:.5f} max {float(dv.max()):.5f}; nodes {n_s} / {n_c}; "
+          f"overflow {bool(st_s.overflow)}")
+    check(abs(float(out["radius"]) - float(rad_c)) <= 1e-6 * float(rad_c),
+          "sharded frame: sampling radius differs")
+    check(int(st_s.n_corr) == int(st_c.n_corr),
+          "sharded frame: n_corr differs")
+    check(np.allclose(cb_s, cb_c, rtol=0.05, atol=0),
+          f"sharded frame: cost before {cb_s} vs {cb_c}")
+    check(np.allclose(ca_s, ca_c, rtol=0.10, atol=0),
+          f"sharded frame: cost after {ca_s} vs {ca_c}")
+    check(ca_s[0] < 0.5 * cb_s[0], "sharded frame: the solve did not "
+          "descend")
+    check(p999 < 0.25, f"sharded frame: |dvalues| p99.9 {p999}")
+    check(n_s > 0 and abs(n_s - n_c) <= 16,
+          f"sharded frame: nodes {n_s} vs {n_c}")
+    return f["wall_s"]
+
+
+def phase_k512(torch, dev, fus, live):
+    """K1, K2 and K5 held against their twins at 512³ shapes: K1 on the
+    bench512 Fusion's canonical volume and on ``live`` at full resolution
+    and at the path's strides (4 and 2); K2 with the path's inputs (the
+    Fusion's node field, pose, caches and mip certificate on ``live``);
+    K5 fusing config 6's 8 views of 512² into an empty 512³ volume. The
+    count of unequal elements is printed (expected 0) and must be 0.
+    Returns the 512³ rows {name: {ms, plain_ms, bound_ms, bound_by,
+    n_not_equal}}."""
+    from dynamicfusion_body_tpu_torch.ops.fusion_cuda import (
+        fuse_depth_multi, fuse_depth_multi_ref)
+    from dynamicfusion_body_tpu_torch.ops.mc_cuda import (
+        mc_case_cross, mc_case_cross_ref)
+    from dynamicfusion_body_tpu_torch.ops.projection import (
+        estimate_alignment, make_ind_matrix)
+    from dynamicfusion_body_tpu_torch.ops.trilerp_cuda import (
+        live_brick_mip, mip_short_bricks, mip_skip_supported,
+        warp_trilerp_bricks_cached, warp_trilerp_bricks_cached_ref)
+    from dynamicfusion_body_tpu_torch.pipeline.frame import _build_caches
+
+    R = 512
+    rows = {}
+    canonical = fus.volume.values
+    for name, vol in (("canonical", canonical), ("live", live),
+                      ("canonical [::4]", canonical[::4, ::4, ::4]),
+                      ("live [::2]", live[::2, ::2, ::2])):
+        got = mc_case_cross(vol, 0.0)
+        want = mc_case_cross_ref(vol, 0.0)
+        n_neq = int(torch.sum(got != want))
+        del want
+        ms = cuda_ms(torch, lambda: mc_case_cross(vol, 0.0))
+        plain = cuda_ms(torch, lambda: mc_case_cross_ref(vol, 0.0), reps=3)
+        b = bound(8 * vol.numel(), 8 * vol.numel())
+        print(f"# K1 512^3 {name} {tuple(vol.shape)}: {n_neq} words not "
+              f"equal to the twin's; kernel {ms:.4f} ms, twin {plain:.4f} "
+              f"ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+        check(n_neq == 0, f"K1 at 512^3 ({name}): {n_neq} words differ")
+        if "mc_case_cross" not in rows:
+            rows["mc_case_cross"] = dict(ms=ms, plain_ms=plain,
+                                         n_not_equal=n_neq, **b)
+        del got
+    torch.cuda.empty_cache()
+
+    wf, lw, tdist = fus._warp, fus._lw, fus._tdist
+    (cand, _), (sel, selw, _) = _build_caches(wf, (R,) * 3, 8, 16, fus._knn,
+                                              False)
+    check(mip_skip_supported(live.shape), "512^3 live without the mip path")
+    mip = live_brick_mip(live)
+    args = (live, wf.node_dq, cand, sel, selw, lw)
+    kw = dict(brick=8, tdist=tdist, live_mip=mip)
+    got = warp_trilerp_bricks_cached(*args, **kw, coords=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ref = warp_trilerp_bricks_cached_ref(*args, **kw, coords=False)
+    torch.cuda.synchronize()
+    twin_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_neq = n_not_equal(got, ref)
+    del got, ref
+    # the taps this run's full bricks read (the bound counts each once)
+    _, r_valid, r_wx, r_wy, r_wz = warp_trilerp_bricks_cached_ref(*args,
+                                                                  **kw)
+    short, _ = mip_short_bricks(r_wx, r_wy, r_wz, r_valid, live.shape,
+                                tdist, mip)
+    n_full = int(torch.sum(~short))
+    n_taps = live_taps(live.shape, [w[~short] for w in (r_wx, r_wy, r_wz)])
+    del r_valid, r_wx, r_wy, r_wz, short
+    torch.cuda.empty_cache()
+    ms = cuda_ms(torch, lambda: warp_trilerp_bricks_cached(
+        *args, **kw, coords=False))
+    nb, v = sel.shape
+    nbytes = (4 * n_taps
+              + sum(t.numel() * t.element_size()
+                    for t in (wf.node_dq, cand.to(torch.int32), sel, selw,
+                              lw, *mip))
+              + 4 * nb * v + nb * v)
+    b = bound(nbytes, nb * v * K2_OPS_VOXEL + n_full * v * K2_OPS_TRILERP)
+    print(f"# K2 512^3 (Fusion's update inputs, {nb} bricks): {n_neq} "
+          f"voxels not bit-equal to the twin; kernel {ms:.4f} ms, twin "
+          f"{twin_s * 1e3:.1f} ms (one synced call), bound "
+          f"{b['bound_ms']:.4f} ms ({b['bound_by']}; full bricks {n_full}, "
+          f"taps {n_taps}); peak device memory with the twin {peak:.2f} "
+          f"GiB")
+    check(n_neq == 0, f"K2 at 512^3: {n_neq} voxels differ from the twin")
+    rows["warp_trilerp_bricks_cached"] = dict(
+        ms=ms, plain_ms=twin_s * 1e3, n_not_equal=n_neq, **b)
+    del cand, sel, selw, mip, args
+    torch.cuda.empty_cache()
+
+    _, _, _, depths, lws = config6_views(torch, dev)
+    kinv = np.linalg.inv(K6).astype(np.float32)
+    avg, std = estimate_alignment(depths, torch.from_numpy(kinv).to(dev),
+                                  torch.from_numpy(lws).to(dev))
+    ind = make_ind_matrix(R, avg, std).cpu().numpy()
+    projs = torch.from_numpy(k5_projs(lws, ind)).to(dev)
+    kr = torch.from_numpy(kinv[2]).to(dev)
+    td = 8.0 / R * 1.3
+    v0 = torch.full((R,) * 3, td, device=dev)
+    w0 = torch.zeros((R,) * 3, device=dev)
+    gv, gw = fuse_depth_multi(v0, w0, depths, projs, kr, td)
+    rv, rw = fuse_depth_multi_ref(v0, w0, depths, projs, kr, td)
+    torch.cuda.synchronize()
+    n_neq = int(torch.sum((gv != rv) | (gw != rw)))
+    n_upd = int(torch.sum(gw))
+    del gv, gw, rv, rw
+    ms = cuda_ms(torch, lambda: fuse_depth_multi(v0, w0, depths, projs, kr,
+                                                 td))
+    plain = cuda_ms(torch, lambda: fuse_depth_multi_ref(v0, w0, depths,
+                                                        projs, kr, td),
+                    reps=3)
+    nvox = R ** 3
+    # bytes as phase 8; operations without the in-image split (a lower
+    # count: every voxel-view's projection and test, every update)
+    b = bound(16 * nvox + 4 * (depths.numel() + projs.numel() + 3),
+              nvox * N_VIEWS * (K5_OPS_VIEW + K5_DIVS_VIEW)
+              + n_upd * (K5_OPS_INB + K5_OPS_UPD + K5_DIVS_UPD))
+    print(f"# K5 512^3 x {N_VIEWS} views of {IMG}^2: {n_neq} voxels not "
+          f"bit-equal to the twin; updates {n_upd}; kernel {ms:.4f} ms, twin "
+          f"{plain:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+    check(n_neq == 0, f"K5 at 512^3: {n_neq} voxels differ from the twin")
+    rows["fuse_depth_multi"] = dict(ms=ms, plain_ms=plain,
+                                    n_not_equal=n_neq, **b)
+    del v0, w0, depths
+    torch.cuda.empty_cache()
+    return rows
+
+
 def k5_warp_instructions(torch, culled, ok_x, img, px, py, u, v, pw, depth,
                          kr):
     """The warp instructions K5 issues for one view at 256³ from K5_SASS's
@@ -2146,9 +2398,10 @@ def main() -> int:
     rows = {}
     # launches of each kernel on the paths it serves (bench, the
     # correspondence modes, config 4, config 6, config 7, the profiling
-    # tools, the benchmark entry points), each path's counts set to 0 just
-    # before it; K4 (trilerp_bricks) and K6 (trilerp_ablation) serve the
-    # tools only
+    # tools, the benchmark entry points, the 512³ bench), each path's
+    # counts set to 0 just before it; K4 (trilerp_bricks) and K6
+    # (trilerp_ablation) serve the tools only; the sharded frame runs no
+    # kernel (as the JAX package's sharded path runs no Pallas kernel)
     meta = {
         "mc_case_cross": ("mc_case_cross.cu", f"{PKG}/ops/mc_pallas.py:98"),
         "warp_trilerp_bricks_cached": (
@@ -2284,6 +2537,18 @@ def main() -> int:
         check(launches[name] > 0, f"the entry points launched no {name}")
     for name, n in launches.items():
         total[name] += n
+    stamp("benchmark entry points")
+
+    rep, launches = phase_bench512(torch, dev)
+    for name, n in launches.items():
+        total[name] += n
+    stamp("bench512 and the fused 512^3 frame")
+    phase_k512(torch, dev, rep.fus, rep.vols[2])
+    del rep
+    torch.cuda.empty_cache()
+    stamp("K1, K2, K5 at 512^3")
+    phase_sharded(torch, dev)
+    stamp("sharded frame")
 
     table = {"kernels": [
         dict(name=name, route="cuda", source=f"{PKG}_torch/csrc/{src}",

@@ -38,6 +38,8 @@ _MESH_DTYPES = {
     "warp_sel": torch.int32,
     "warp_selw": torch.float32,
     "warp_wi": torch.float32,
+    "edge_axis": torch.int64,
+    "edge_x": torch.int64,
 }
 
 
@@ -65,8 +67,8 @@ def warp_field_to_numpy(wf: WarpField) -> dict:
 def mesh_from_jax(np_dict, device="cuda") -> dict:
     """Canonical-mesh dict (``fusion_frame``'s ``canon_mesh``) from the JAX
     one as numpy arrays, with its brick_cand/brick_risk/warp_sel/
-    warp_selw/warp_wi caches when present. The sharding-only entries
-    (``edge_axis``, ``edge_x``) are dropped."""
+    warp_selw/warp_wi caches and its lattice-edge identity (``edge_axis``,
+    ``edge_x``) when present."""
     return {k: _t(v, _MESH_DTYPES[k], device) for k, v in np_dict.items()
             if k in _MESH_DTYPES}
 

@@ -9,8 +9,8 @@ truncate, and apply the weighted running average with the ``WMAX`` clamp.
 
 :func:`fuse_depth` is the plain PyTorch form and the formula the K5 kernel
 (``ops/fusion_cuda.py``) evaluates per voxel, in the same operation order.
-The JAX function's ``x_offset`` (the x-slab origin of the sharded path)
-waits for the ``parallel/`` port.
+``x_offset`` is the global x index of a block's first plane: the sharded
+path (``parallel/sharded.py``) gives each rank its x-slab.
 """
 
 from __future__ import annotations
@@ -66,27 +66,29 @@ class TsdfVolume:
         return torch.einsum("ij,...j->...i", inv[:3, :3], pts) + inv[:3, 3]
 
 
-def _grid_axes(shape, device):
+def _grid_axes(shape, device, x_offset=0):
     """Voxel index coordinates as broadcastable (X,1,1), (1,Y,1), (1,1,Z)
-    float32 tensors."""
+    float32 tensors, x starting at ``x_offset``."""
     rx, ry, rz = shape
     f32 = torch.float32
-    return (torch.arange(rx, dtype=f32, device=device)[:, None, None],
+    return (torch.arange(rx, dtype=f32, device=device)[:, None, None]
+            + x_offset,
             torch.arange(ry, dtype=f32, device=device)[None, :, None],
             torch.arange(rz, dtype=f32, device=device)[None, None, :])
 
 
 def fuse_depth(values, weights, depth, proj, kinv, tdist: float,
-               wmax: float = 100.0):
+               wmax: float = 100.0, x_offset=0):
     """One projective TSDF update from one depth map.
 
     values/weights (R,R,R); depth (H,W) negative-depth map; proj (3,4) =
-    K·lw·IND; kinv (3,3), of which row 2 is read. Returns the updated
+    K·lw·IND; kinv (3,3), of which row 2 is read; x_offset the global x
+    index of the block's first plane. Returns the updated
     (values, weights). Functional spec: reference OpenCL kernel
     core/fusion_dm.py:630-673 (the JAX package checks its counterpart
     against a NumPy transcription, tests/test_fusion_kernels.py)."""
     h, w = depth.shape
-    xs, ys, zs = _grid_axes(values.shape, values.device)
+    xs, ys, zs = _grid_axes(values.shape, values.device, x_offset)
 
     u = proj[0, 0] * xs + proj[0, 1] * ys + proj[0, 2] * zs + proj[0, 3]
     v = proj[1, 0] * xs + proj[1, 1] * ys + proj[1, 2] * zs + proj[1, 3]
@@ -128,12 +130,13 @@ def fuse_depth(values, weights, depth, proj, kinv, tdist: float,
 
 
 def update_tsdf_rigid(values, weights, live, lw_dq, tdist: float,
-                      wmax: float = 100.0):
+                      wmax: float = 100.0, x_offset=0):
     """Rigid TSDF-to-TSDF fusion: warp each canonical voxel center by the
     global DQ, trilerp the live TSDF, running-average update (reference
     FusionDM.updateTSDF, core/fusion_dm.py:300-316: skip when the sample is
-    out of volume or <= -tdist; wi = 1)."""
-    xs, ys, zs = _grid_axes(values.shape, values.device)
+    out of volume or <= -tdist; wi = 1). ``x_offset`` as in
+    :func:`fuse_depth`."""
+    xs, ys, zs = _grid_axes(values.shape, values.device, x_offset)
     pos = torch.stack(torch.broadcast_tensors(xs, ys, zs), dim=-1)
     warped = dq_transform_point(lw_dq, pos.reshape(-1, 3))
     tsdf_l, valid = trilinear(live, warped)

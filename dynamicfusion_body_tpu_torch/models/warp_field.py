@@ -116,26 +116,29 @@ def warp_points(wf: WarpField, pos, nbr_idx, normals=None, m_lw=None):
     return p, n
 
 
-def _grid_centers(n3, size: int, device):
+def _grid_centers(n3, size: int, device, x_offset=0):
     """Centres of a size³-cell grid with n3 = (nx, ny, nz) cells, x-major
-    (z fastest), as (nx·ny·nz, 3) f32."""
+    (z fastest), as (nx·ny·nz, 3) f32, x shifted by ``x_offset``."""
     axes = [torch.arange(n, dtype=torch.float32, device=device) * size
             + (size - 1) / 2.0 for n in n3]
+    axes[0] = axes[0] + x_offset
     g = torch.meshgrid(*axes, indexing="ij")
     return torch.stack([c.reshape(-1) for c in g], dim=-1)
 
 
-def brick_candidates(wf: WarpField, shape, brick: int, n_candidates: int):
-    """Exact kNN of every brick centre over the node pool → (NB, C)."""
+def brick_candidates(wf: WarpField, shape, brick: int, n_candidates: int,
+                     x_offset=0):
+    """Exact kNN of every brick centre over the node pool → (NB, C); the
+    lattice's x starts at ``x_offset`` (a sharded slab's origin)."""
     nb3 = [s // brick for s in shape]
-    centers = _grid_centers(nb3, brick, wf.node_pos.device)
+    centers = _grid_centers(nb3, brick, wf.node_pos.device, x_offset)
     return knn(centers, wf.node_pos, n_candidates, valid=wf.active)[1]
 
 
 def brick_candidates_2level(
-    wf: WarpField, shape, brick: int, n_candidates: int, s: int = 2,
-    n_super: int = 192, with_risk: bool = False, risk_k: int | None = None,
-    with_pool: bool = False,
+    wf: WarpField, shape, brick: int, n_candidates: int, x_offset=0,
+    s: int = 2, n_super: int = 192, with_risk: bool = False,
+    risk_k: int | None = None, with_pool: bool = False,
 ):
     """Two-level ``brick_candidates``: exact top-``n_super`` nodes per
     super-brick of s³ bricks, then per brick the top-``n_candidates`` in
@@ -147,10 +150,11 @@ def brick_candidates_2level(
     radii (NS,) for ``build_warp_cache``'s per-voxel certificate (None
     after the flat fallback). ``with_risk=True`` returns ``(cand, n)``:
     bricks where a pool-boundary miss is possible by the conservative
-    brick-ball bound (JAX docstring)."""
+    brick-ball bound (JAX docstring). ``x_offset`` as in
+    :func:`brick_candidates`."""
     nbx, nby, nbz = (d // brick for d in shape)
     if nbx % s or nby % s or nbz % s or n_super > wf.capacity:
-        out = brick_candidates(wf, shape, brick, n_candidates)
+        out = brick_candidates(wf, shape, brick, n_candidates, x_offset)
         if with_pool:
             return out, None
         zero = torch.zeros((), dtype=torch.long, device=out.device)
@@ -159,7 +163,7 @@ def brick_candidates_2level(
     nsx, nsy, nsz = nbx // s, nby // s, nbz // s
     NS = nsx * nsy * nsz
     sb = brick * s
-    centers_s = _grid_centers((nsx, nsy, nsz), sb, dev)
+    centers_s = _grid_centers((nsx, nsy, nsz), sb, dev, x_offset)
     sdist, sidx = knn(centers_s, wf.node_pos, n_super, valid=wf.active)
     spos = wf.node_pos[sidx]                               # (NS, n_super, 3)
     sact = wf.active[sidx]
@@ -199,7 +203,7 @@ def brick_candidates_2level(
 
 
 def build_warp_cache(wf: WarpField, shape, cand, k: int, brick: int,
-                     pool_ctx=None, sfac: int = 2):
+                     x_offset=0, pool_ctx=None, sfac: int = 2):
     """Per-voxel kNN selection cache for ``update_tsdf_nonrigid``.
 
     The per-voxel top-k choice among the brick's candidates, its Gaussian
@@ -216,8 +220,11 @@ def build_warp_cache(wf: WarpField, shape, cand, k: int, brick: int,
     ``brick_candidates_2level(..., with_pool=True)``) a 4th element counts
     the voxels whose selection cannot be certified equal to the flat
     search AND that some node could materially influence (JAX docstring:
-    min(d₁, L) <= 3·max(node_w) with L = r_pool − |v − super centre|).
-    Processed one x-slab of bricks at a time to bound memory."""
+    min(d₁, L) <= 3·max(node_w) with L = r_pool − |v − super centre|,
+    in the lattice's own coordinates: under sharding the pool radii and
+    the voxels carry the same ``x_offset``, which cancels). The voxels'
+    x starts at ``x_offset``. Processed one x-slab of bricks at a time to
+    bound memory."""
     rx, ry, rz = shape
     nbx, nby, nbz = rx // brick, ry // brick, rz // brick
     C = cand.shape[1]
@@ -250,7 +257,7 @@ def build_warp_cache(wf: WarpField, shape, cand, k: int, brick: int,
         npos = wf.node_pos[cidx]                           # (nbs, C, 3)
         ncw = wf.node_w[cidx]
         nact = wf.active[cidx]
-        pxv = (s * brick + ox)[None, :]
+        pxv = (s * brick + x_offset + ox)[None, :]
         dx = pxv[:, None, :] - npos[:, :, 0, None]
         dy = pyv[:, None, :] - npos[:, :, 1, None]
         dz = pzv[:, None, :] - npos[:, :, 2, None]
@@ -295,7 +302,8 @@ def build_warp_cache(wf: WarpField, shape, cand, k: int, brick: int,
 def update_tsdf_nonrigid(
     values, weights, live, wf: WarpField, lw_dq, k: int, tdist: float,
     wmax: float = 100.0, brick: int = 8, n_candidates: int = 8,
-    use_kernels: bool = False, cand_cache=None, warp_cache=None,
+    x_offset=0, use_kernels: bool = False, cand_cache=None,
+    warp_cache=None,
 ):
     """Non-rigid canonical TSDF fusion (reference core/fusion.py:153-198).
 
@@ -323,16 +331,25 @@ def update_tsdf_nonrigid(
     kernels' bf16 interpolation) has no counterpart.
 
     Without ``cand_cache`` the brick candidates and their risk count are
-    searched here (two-level). The JAX arguments ``exact_candidates`` (no
-    caller passes it to the update) and ``x_offset`` (sharding, waits for
-    the ``parallel/`` port) are not ported.
+    searched here (two-level). The JAX argument ``exact_candidates`` (no
+    caller passes it to the update) is not ported.
+
+    ``x_offset`` is the global x index of the canonical block's first
+    plane (a rank's slab, ``parallel/sharded.py``). The kernels take no
+    offset, as the JAX package's sharded path runs none: with
+    ``use_kernels`` a nonzero offset raises.
     """
     vol_shape = tuple(values.shape)
+    if use_kernels and x_offset:
+        raise ValueError(
+            "update_tsdf_nonrigid: the kernels take no x_offset (the "
+            f"sharded path runs the plain form); got x_offset={x_offset}")
     if cand_cache is not None:
         cand, pool_risk = cand_cache
     else:
         cand, pool_risk = brick_candidates_2level(
-            wf, vol_shape, brick, n_candidates, with_risk=True, risk_k=k)
+            wf, vol_shape, brick, n_candidates, x_offset, with_risk=True,
+            risk_k=k)
 
     if use_kernels:
         if warp_cache is None:
@@ -351,10 +368,11 @@ def update_tsdf_nonrigid(
             )
     else:
         if warp_cache is None:
-            warp_cache = build_warp_cache(wf, vol_shape, cand, k, brick)
+            warp_cache = build_warp_cache(wf, vol_shape, cand, k, brick,
+                                          x_offset)
         sel, selw, wi = warp_cache
         wx, wy, wz = warp_voxels(wf.node_dq, cand, sel, selw, lw_dq,
-                                 vol_shape, brick)
+                                 vol_shape, brick, x_offset)
         tsdf_l, valid = _trilinear_c(live, wx, wy, wz)
 
     out_v, out_w = merge_running_average(values, weights, tsdf_l, valid, wi,

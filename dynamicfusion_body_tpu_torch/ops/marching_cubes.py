@@ -60,6 +60,9 @@ def marching_cubes(
     step_size: int = 1,
     with_normals: bool = True,
     use_kernels: bool = False,
+    cell_x_lo=None,
+    cell_x_hi=None,
+    x_index_offset: int = 0,
 ):
     """Extract the ``level`` isosurface of ``vol`` (X,Y,Z).
 
@@ -73,20 +76,34 @@ def marching_cubes(
       overflow          0-d bool: the surface exceeded vert_cap or
                         face_cap (faces touching a dropped vertex are
                         zeroed)
+      edge_axis, edge_x (vert_cap,) int64: each vertex's lattice edge,
+                        its axis and its x index (after x_index_offset),
+                        which the sharded extraction reads to mark its
+                        seam copies (``parallel/mc_sharded.py``)
     Slots >= count are zero.
 
     ``use_kernels`` (the JAX ``use_pallas``): front end through the K1
     wrapper (kernel on CUDA tensors, twin on CPU ones) instead of the
-    twin directly. The lattice-edge identity outputs the sharded
-    extraction needs (``edge_axis``/``edge_x``) and its ``cell_x_lo``/
-    ``x_index_offset`` arguments wait for the ``parallel/`` port.
+    twin directly.
+
+    ``cell_x_lo``/``cell_x_hi`` (ints): the x-slab a sharded extraction
+    owns. Only cells with x in [lo, hi) emit triangles, only x-edges
+    with base x in [lo, hi) and y/z-edges with base x in [lo, hi] emit
+    vertices: the edges the owned cells reference. ``vol`` is then the
+    slab with its halo planes, which the normals' gradient reads.
+    ``x_index_offset`` is added to each vertex's integer x index before
+    the interpolation fraction, so that slabs give the whole volume's
+    coordinates bit for bit.
     """
     if step_size > 1:
         vol = vol[::step_size, ::step_size, ::step_size]
     dev = vol.device
     fused = (mc_case_cross if use_kernels else mc_case_cross_ref)(vol, level)
     fused = fused.reshape(-1)
-    edges, elin, lin1, et, verts = mc_vertices(vol, fused, level, vert_cap)
+    if cell_x_lo is not None:
+        fused = _own_slab(fused, vol.shape[0], cell_x_lo, cell_x_hi)
+    edges, elin, lin1, et, verts = mc_vertices(vol, fused, level, vert_cap,
+                                               x_index_offset)
     n_verts = edges.numel()
     vmask = torch.arange(vert_cap, device=dev) < n_verts
     faces, n_faces = mc_faces(fused, edges, vol.shape, face_cap, vert_cap)
@@ -101,6 +118,10 @@ def marching_cubes(
     verts = torch.where(vmask[:, None], verts, 0.0)
     normals = torch.where(vmask[:, None], normals, 0.0)
     values = torch.where(vmask, torch.full_like(et, float(level)), 0.0)
+    ev = _pad_to(edges, vert_cap)
+    nyz = vol.shape[1] * vol.shape[2]
+    edge_axis = torch.where(vmask, ev // (vol.shape[0] * nyz), 0)
+    edge_x = torch.where(vmask, elin // nyz + x_index_offset, 0)
     return {
         "verts": verts,
         "normals": normals,
@@ -110,16 +131,29 @@ def marching_cubes(
         "n_faces": torch.tensor(nf, device=dev),
         "overflow": torch.tensor(n_verts > vert_cap or n_faces > face_cap,
                                  device=dev),
+        "edge_axis": edge_axis,
+        "edge_x": edge_x,
     }
 
 
-def mc_vertices(vol, fused, level: float, vert_cap: int):
+def _own_slab(fused, X: int, lo: int, hi: int):
+    """The K1 words ``fused`` (flat) with everything outside the owned
+    slab cleared: case bytes and x-edge flags outside x in [lo, hi),
+    y/z-edge flags outside x in [lo, hi]."""
+    ix = torch.arange(X, device=fused.device)
+    keep = (torch.where((ix >= lo) & (ix < hi), 0x1FF, 0)
+            | torch.where((ix >= lo) & (ix <= hi), 0x600, 0))
+    return (fused.reshape(X, -1) & keep[:, None].to(fused.dtype)).reshape(-1)
+
+
+def mc_vertices(vol, fused, level: float, vert_cap: int,
+                x_index_offset: int = 0):
     """The vertex stage: one vertex per crossing lattice edge of the K1
     words ``fused`` (flat), in ascending edge id, at the linear zero
-    crossing. Returns (edges (sorted crossing edge ids, all of them),
-    elin, lin1 (the edges' low and high lattice voxels), et (crossing
-    fraction), verts (vert_cap, 3)), the last four padded or cut to
-    ``vert_cap``."""
+    crossing (x index shifted by ``x_index_offset``). Returns (edges
+    (sorted crossing edge ids, all of them), elin, lin1 (the edges' low
+    and high lattice voxels), et (crossing fraction), verts (vert_cap,
+    3)), the last four padded or cut to ``vert_cap``."""
     X, Y, Z = vol.shape
     nxyz = X * Y * Z
     flat_mask = torch.cat([((fused >> (8 + a)) & 1).bool() for a in range(3)])
@@ -140,7 +174,7 @@ def mc_vertices(vol, fused, level: float, vert_cap: int):
                      torch.full_like(denom, 0.5))
     zero = torch.zeros_like(et)
     verts = torch.stack([
-        ei.float() + torch.where(ea == 0, et, zero),
+        (ei + x_index_offset).float() + torch.where(ea == 0, et, zero),
         ej.float() + torch.where(ea == 1, et, zero),
         ek.float() + torch.where(ea == 2, et, zero),
     ], dim=-1)

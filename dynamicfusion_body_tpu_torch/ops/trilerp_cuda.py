@@ -35,7 +35,9 @@ the TPU mechanisms become here:
   flags;
 * the ``group``, ``precise``, ``interpret`` and ``x_offset`` arguments
   have no counterpart (no shared DMA box, one f32 path, no interpreter;
-  the sharded path waits for ``parallel/``).
+  the sharded path, ``parallel/``, runs the plain form with its offset,
+  ``warp_voxels(x_offset=...)``, as the JAX package's runs no Pallas
+  kernel).
 
 The canonical lattice ``vol_shape`` (which the caller may pad up to a
 multiple of the brick) sets the brick grid and the voxel centres; the
@@ -93,11 +95,13 @@ def mip_skip_supported(shape) -> bool:
     return all(s % 8 == 0 and s >= 24 for s in shape)
 
 
-def warp_voxels(node_dq, cand, sel, selw, lw_dq, shape, brick: int):
+def warp_voxels(node_dq, cand, sel, selw, lw_dq, shape, brick: int,
+                x_offset=0):
     """Warped live-space coordinates (wx, wy, wz), each (NB, V), of every
     canonical voxel centre in brick-row layout: cached-selection DQ blend
     → 8-norm normalize → sandwich → global pose. The K2 kernel's first
-    stage, in the same operation order."""
+    stage, in the same operation order. The lattice's x starts at
+    ``x_offset`` (a sharded slab's origin; the kernels take none)."""
     NB = cand.shape[0]
     V = brick ** 3
     k = selw.shape[1]
@@ -105,7 +109,8 @@ def warp_voxels(node_dq, cand, sel, selw, lw_dq, shape, brick: int):
     dev = cand.device
     b = torch.arange(NB, device=dev)[:, None]
     v = torch.arange(V, device=dev)[None, :]
-    px = ((b // (nby * nbz)) * brick + v // (brick * brick)).float()
+    px = ((b // (nby * nbz)) * brick + x_offset
+          + v // (brick * brick)).float()
     py = (((b // nbz) % nby) * brick + (v // brick) % brick).float()
     pz = ((b % nbz) * brick + v % brick).float()
     acc = None

@@ -40,12 +40,8 @@ from ..ops.knn import knn as _knn
 from ..ops.marching_cubes import marching_cubes
 from ..ops.projection import estimate_alignment, make_ind_matrix
 from ..ops.se3 import dq_to_se3
-from ..solvers.nonrigid import (
-    ELL_DEGREE_CAP as _ELL_DEGREE_CAP,
-    gn_solve_core,
-    make_reg_pairs,
-    relaxation_step,
-)
+from ..solvers import nonrigid as _nonrigid
+from ..solvers.nonrigid import gn_solve_core, make_reg_pairs, relaxation_step
 from ..solvers.rigid import solve_rigid
 from .correspondence import closest_point_correspondences, prune_by_plane_cost
 from .frame import _build_caches
@@ -589,7 +585,8 @@ class Fusion:
                     "degree cap (ELL_DEGREE_CAP=%d) and were dropped — the "
                     "CG operator is under-assembled and convergence may "
                     "stall; raise solvers.nonrigid.ELL_DEGREE_CAP for this "
-                    "graph density" % (int(ell_over), _ELL_DEGREE_CAP),
+                    "graph density" % (int(ell_over),
+                                       _nonrigid.ELL_DEGREE_CAP),
                     RuntimeWarning, stacklevel=2)
             cost_before = float(cost_before)
             if self._verbose:

@@ -107,11 +107,17 @@ def _residuals(node_dq, data_args, reg_args, lw_dq):
     return r_d, r_r
 
 
-def _energies(r_d, r_r):
-    """(raw, huberized) total costs 0.5·Σr² and 0.5·Σρ(r²)."""
+def _ident(x):
+    return x
+
+
+def _energies(r_d, r_r, psum=_ident):
+    """(raw, huberized) total costs 0.5·Σr² and 0.5·Σρ(r²). The data
+    term may be vertex-sharded: ``psum`` folds it over the ranks (the reg
+    term is replicated)."""
     zd, zr = r_d ** 2, r_r ** 2
-    raw = 0.5 * (torch.sum(zd) + torch.sum(zr))
-    rob = 0.5 * (torch.sum(_rho(zd)) + torch.sum(_rho(zr)))
+    raw = 0.5 * (psum(torch.sum(zd)) + torch.sum(zr))
+    rob = 0.5 * (psum(torch.sum(_rho(zd))) + torch.sum(_rho(zr)))
     return raw, rob
 
 
@@ -201,6 +207,37 @@ def make_block_ell(nbr_idx, corr_mask, pair_i, pair_j, pair_mask, M: int,
     return reduce_ell, ell.ell_nbr, ell.self_ids, ell.present, ell.n_overflow
 
 
+def make_block_ell_sharded(ell_dict: EllDict, nbr_idx, corr_mask, pair_i,
+                           pair_j, pair_mask, M: int, psum, n_dev: int):
+    """:func:`make_block_ell` for a vertex shard (JAX
+    ``solvers/nonrigid.py:make_block_ell_sharded``): ``ell_dict`` is the
+    slot dictionary of the GLOBAL coupling graph (:func:`make_ell_dict`
+    on every rank's vertices, the same on every rank); this rank sums its
+    local contributions into those global slots and ``psum`` (the
+    all-reduce over the ``n_dev`` ranks) finishes the table, so
+    ``reduce_ell`` returns the global (M·D, 64) blocks. The reg
+    contributions, which every rank computes whole, are scaled by
+    1/n_dev before the sum (exact for a power-of-two rank count, as in
+    the JAX package). Local couplings the degree cap left out of the
+    dictionary match no slot; the overflow count is the dictionary's,
+    taken on the global key multiset."""
+    keys = _coupling_keys(nbr_idx, corr_mask, pair_i, pair_j, pair_mask, M)
+    slot = _lookup(ell_dict.slot_key, keys)
+    slot = torch.where(keys < M * M, slot, -1)
+    rows = torch.nonzero(slot >= 0).flatten()
+    slots = slot[rows]
+    n_data = nbr_idx.shape[0] * nbr_idx.shape[1] ** 2
+    scale = torch.where(rows < n_data, 1.0, 1.0 / n_dev)[:, None]
+    D = ell_dict.slot_key.numel() // M
+
+    def reduce_ell(contrib):
+        out = contrib.new_zeros((M * D, contrib.shape[1]))
+        return psum(out.index_add_(0, slots, contrib[rows] * scale))
+
+    return (reduce_ell, ell_dict.ell_nbr, ell_dict.self_ids,
+            ell_dict.present, ell_dict.n_overflow)
+
+
 class SolverCtx(NamedTuple):
     """Frame-constant solver plumbing shared by every relaxation round:
     the ``make_block_ell`` tuple of the frame's coupling graph. It is built
@@ -208,13 +245,18 @@ class SolverCtx(NamedTuple):
     mask); vertices without a correspondence carry zero Jacobians, so the
     assembled table equals one built from the round's own mask. The
     data- and reg-term segment sums need no plumbing in the direct
-    (``index_add_``) form."""
+    (``index_add_``) form. A vertex-sharded solve passes
+    ``SolverCtx(make_block_ell_sharded(...))``."""
 
     ell: tuple
 
 
 def make_solver_ctx(nbr_idx, valid_mask, pair_i, pair_j, pair_mask, M: int,
-                    D: int = ELL_DEGREE_CAP) -> SolverCtx:
+                    D: int | None = None) -> SolverCtx:
+    """The frame's :class:`SolverCtx`; ``D`` defaults to the module's
+    ``ELL_DEGREE_CAP`` as it is at the call (``tools/diag_config7.py
+    --ell-cap`` raises it for one arm)."""
+    D = ELL_DEGREE_CAP if D is None else D
     return SolverCtx(make_block_ell(nbr_idx, valid_mask, pair_i, pair_j,
                                     pair_mask, M, D))
 
@@ -258,7 +300,7 @@ def _reg_jacobians(x, reg_args):
 
 
 def gn_solve_core(node_dq, data_args, reg_args, lw_dq, gn_iters: int,
-                  cg_iters: int, damping: float, ftol: float,
+                  cg_iters: int, damping: float, ftol: float, psum=_ident,
                   damping_init=None, solver_ctx: SolverCtx | None = None):
     """Damped GN outer loop with a block-ELL JᵀWJ and block-Jacobi PCG
     (module docstring). ``data_args`` = (verts, normals, corrs, corr_mask,
@@ -267,6 +309,14 @@ def gn_solve_core(node_dq, data_args, reg_args, lw_dq, gn_iters: int,
     (default ``damping``, which stays the floor); ``solver_ctx`` shares one
     slot dictionary across rounds (built from this round's sparsity when
     omitted).
+
+    ``psum`` is applied to every data-term reduction (the energies and the
+    gradient): the identity on one device, the all-reduce over the ranks
+    when the data arguments are a vertex shard (``parallel/sharded.py``),
+    whose ``solver_ctx`` then holds :func:`make_block_ell_sharded`. The
+    reg term and the CG state are replicated, and every predicate read on
+    the host comes from all-reduced energies, so all ranks take the same
+    branches.
 
     Returns (node_dq, cost0_raw, cost0, cost1, dmp_out, ell_overflow):
     raw and huberized initial cost, final huberized cost, final LM
@@ -284,10 +334,10 @@ def gn_solve_core(node_dq, data_args, reg_args, lw_dq, gn_iters: int,
     eye8 = torch.eye(8, dtype=f32, device=dev)
 
     def energy(x):
-        return _energies(*_residuals(x, data_args, reg_args, lw_dq))[1]
+        return _energies(*_residuals(x, data_args, reg_args, lw_dq), psum)[1]
 
     cost0_raw, cost0 = _energies(*_residuals(node_dq, data_args, reg_args,
-                                            lw_dq))
+                                            lw_dq), psum)
 
     def run_step(x, e, dmp, Bl, blk, e_asm):
         r_d, J_d = _data_jacobians(x, data_args, lw_dq)
@@ -304,6 +354,7 @@ def gn_solve_core(node_dq, data_args, reg_args, lw_dq, gn_iters: int,
         g = torch.zeros((M, 8), dtype=f32, device=dev)
         g.index_add_(0, nbr_idx.reshape(-1),
                      (J_d * (w_d * r_d)[:, None, None]).reshape(-1, 8))
+        g = psum(g)
         wrr = w_r * r_r
         g.index_add_(0, pair_i, torch.einsum("pc,pce->pe", wrr, J_ri))
         g.index_add_(0, pair_j, torch.einsum("pc,pce->pe", wrr, J_rj))

@@ -1,5 +1,6 @@
 """Rigid pose estimation — counterpart of
-``dynamicfusion_body_tpu/solvers/rigid.py:solve_rigid``.
+``dynamicfusion_body_tpu/solvers/rigid.py`` (``solve_rigid``,
+``solve_rigid_core``).
 
 Point-to-plane Gauss-Newton over a free 8-component dual quaternion
 applied unnormalized through the sandwich product, as the reference
@@ -23,10 +24,19 @@ def p2s_residuals(lw_dq, pts, normals, corrs, mask):
     return torch.where(mask, r, torch.zeros_like(r))
 
 
-def solve_rigid(lw_dq, pts, normals, corrs, mask, iterations: int = 10,
-                damping: float = 1e-6):
+def _ident(x):
+    return x
+
+
+def solve_rigid_core(lw_dq, pts, normals, corrs, mask, iterations: int = 10,
+                     damping: float = 1e-6, reduce=_ident):
     """GN on the 8-dof DQ pose; a step is kept only when it does not
-    raise the energy. Returns (lw_dq, cost = 0.5·Σr²)."""
+    raise the energy. Returns (lw_dq, cost = 0.5·Σr²).
+
+    ``reduce`` is applied to every reduction over the points (JᵀJ, Jᵀr
+    and the energies): the identity on one device, the all-reduce over
+    the ranks' vertex shards in ``parallel/frame_sharded.py``, where the
+    pose and its 8×8 system stay replicated."""
 
     def resid(x):
         return p2s_residuals(x, pts, normals, corrs, mask)
@@ -36,10 +46,19 @@ def solve_rigid(lw_dq, pts, normals, corrs, mask, iterations: int = 10,
     for _ in range(iterations):
         r = resid(x)
         J = jacfwd(resid)(x)                                  # (V, 8)
-        JtJ = J.T @ J
-        Jtr = J.T @ r
+        JtJ = reduce(J.T @ J)
+        Jtr = reduce(J.T @ r)
         A = JtJ + damping * eye * (torch.trace(JtJ) / 8.0 + 1e-12)
         x_new = x + torch.linalg.solve(A, -Jtr)
-        better = torch.sum(resid(x_new) ** 2) <= torch.sum(r ** 2)
+        better = (reduce(torch.sum(resid(x_new) ** 2))
+                  <= reduce(torch.sum(r ** 2)))
         x = torch.where(better, x_new, x)
-    return x, 0.5 * torch.sum(resid(x) ** 2)
+    return x, 0.5 * reduce(torch.sum(resid(x) ** 2))
+
+
+def solve_rigid(lw_dq, pts, normals, corrs, mask, iterations: int = 10,
+                damping: float = 1e-6):
+    """The single-device entry: :func:`solve_rigid_core` with the identity
+    reduction. Returns (lw_dq, cost = 0.5·Σr²)."""
+    return solve_rigid_core(lw_dq, pts, normals, corrs, mask, iterations,
+                            damping)

@@ -15,6 +15,10 @@ errors in voxels:
   --gn, --cg, --solve-iters   solver depth per relaxation round, rounds
   --reg           regularization weight
   --angles        per-frame bend angles (rad)
+  --ell-cap       the solver's block-ELL degree cap (``solvers/nonrigid.py:
+                  ELL_DEGREE_CAP``, 24) for this arm only: the JᵀWJ
+                  couplings past the cap are dropped from the CG operator
+                  (a port-only knob; each line reports the dropped count)
 
 With no knob given an arm is the suite's config 7 at ``--res`` (the JAX
 tool's defaults are its 256³ settings, the same as the suite's there).
@@ -26,12 +30,16 @@ tool's defaults are its 256³ settings, the same as the suite's there).
 
 from __future__ import annotations
 
+import contextlib
 import json
+import re
+import warnings
 
 import numpy as np
 
 from ..benchmarks import bench, suite
 from ..pipeline.fusion import resolve_device
+from ..solvers import nonrigid
 
 SWEEP = (
     ("base", {}),
@@ -40,19 +48,50 @@ SWEEP = (
     ("reg.25", dict(reg=0.25)),
     ("iters6", dict(solve_iters=6)),
     ("halfstep_motion", dict(angles=(0.04, 0.08, 0.12, 0.16, 0.20, 0.24))),
+    ("ell48", dict(ell_cap=48)),
 )
+_DROPPED = re.compile(r"solve: (\d+) JtWJ contributions exceeded")
 
 
-def run_arm(dev, res, verts, faces, label="arm", img=suite.IMG, **knobs):
-    """One arm: config 7 at ``res`` with ``knobs`` (``run_config7``'s);
-    prints and returns its JSON line."""
-    c = suite.run_config7(dev, res, verts, faces, img=img, **knobs)
+@contextlib.contextmanager
+def degree_cap(cap):
+    """The solver's ELL degree cap set to ``cap`` inside the block (None:
+    left as it is); yields a list that collects the number of JᵀWJ
+    contributions each solve dropped past the cap."""
+    old = nonrigid.ELL_DEGREE_CAP
+    dropped = []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        if cap is not None:
+            nonrigid.ELL_DEGREE_CAP = int(cap)
+        try:
+            yield dropped
+        finally:
+            nonrigid.ELL_DEGREE_CAP = old
+    for w in caught:
+        m = _DROPPED.match(str(w.message))
+        if m:
+            dropped.append(int(m.group(1)))
+        else:
+            warnings.warn_explicit(w.message, w.category, w.filename,
+                                   w.lineno)
+
+
+def run_arm(dev, res, verts, faces, label="arm", img=suite.IMG,
+            ell_cap=None, **knobs):
+    """One arm: config 7 at ``res`` with ``knobs`` (``run_config7``'s)
+    and the ELL degree cap ``ell_cap`` (None: the solver's); prints and
+    returns its JSON line."""
+    with degree_cap(ell_cap) as dropped:
+        c = suite.run_config7(dev, res, verts, faces, img=img, **knobs)
     vox = c["voxel"]
     out = {
         "metric": "diag_config7",
         "label": label,
         "res": res,
         **c["settings"],
+        "ell_cap": ell_cap or nonrigid.ELL_DEGREE_CAP,
+        "ell_dropped": dropped,
         "per_frame_voxels": [round(float(np.mean(x) / vox), 3)
                              for x in c["serr"]],
         "final_voxels": round(float(np.mean(c["serr"][-1]) / vox), 3),
@@ -75,6 +114,7 @@ def main(argv=None) -> list:
     ap.add_argument("--solve-iters", type=int, default=3)
     ap.add_argument("--reg", type=float, default=0.5)
     ap.add_argument("--angles", type=str, default="0.08,0.16,0.24")
+    ap.add_argument("--ell-cap", type=int, default=None)
     ap.add_argument("--label", type=str, default="arm")
     ap.add_argument("--sweep", action="store_true",
                     help="run the preset one-knob-at-a-time sweep")
@@ -88,7 +128,7 @@ def main(argv=None) -> list:
     return [run_arm(
         label=a.label, tolerance=a.tolerance, live_mc_step=a.live_mc_step,
         mc_step=a.mc_step, gn_iters=a.gn, cg_iters=a.cg,
-        solve_iters=a.solve_iters, reg=a.reg,
+        solve_iters=a.solve_iters, reg=a.reg, ell_cap=a.ell_cap,
         angles=tuple(float(x) for x in a.angles.split(",")), **common)]
 
 

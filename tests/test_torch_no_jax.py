@@ -19,7 +19,7 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax",
                                     "dynamicfusion_body_tpu", "bench",
                                     "suite", "benchmarks"))
-assert len(mods) >= 62, mods
+assert len(mods) >= 70, mods
 assert not bad, bad
 print("ok")
 """
