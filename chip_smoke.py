@@ -84,10 +84,10 @@ Phases, each of which raises on failure (exit code 1):
      error below the untracked one;
   12. the profiling entry points (dynamicfusion_body_tpu_torch/tools), in
      process at 256³: profile_trilerp and profile_upd as a user runs
-     them, profile_mc, profile_solve and profile_frame with --reps 3 and
-     --trace (into a temporary directory), then profile_corr5 as a user
-     runs it; their lines go out as '#' lines; K6 must have launched
-     there;
+     them, profile_mc and profile_frame with --reps 1 and --trace (into
+     a temporary directory), profile_solve with --reps 1, then
+     profile_corr5 as a user runs it; their lines go out as '#' lines;
+     K6 must have launched there;
   13. the benchmark entry points (dynamicfusion_body_tpu_torch/
      benchmarks, tools/diag_*), in process: the bench at 256³ with its
      three accuracy gates (bench.py's keys, accuracy_ok true, K1 and K2
@@ -134,19 +134,33 @@ Phases, each of which raises on failure (exit code 1):
      device memory and its JSON line printed; then one fused frame
      (fusion_frame(allow_large=True), bench512 --fused) on the same
      volumes; K1 and K2 launched, the TSDFs finite;
-  17. K1, K2 and K5 at 512³ against their twins, the count of unequal
-     elements printed and held to 0: K1 on Fusion's canonical volume
-     and a live volume, whole and at the path's strides 4 and 2; K2 with
-     Fusion's update inputs (node field, pose, caches, mip); K5 fusing
-     config 6's 8 views of 512² into an empty 512³ volume; each timed
-     beside its twin and its bound;
+  17. K1, K2, K5 and K3 at 512³ against their twins, the count of
+     unequal elements printed and held to 0: K1 on Fusion's canonical
+     volume and a live volume, whole and at the path's strides 4 and 2;
+     K2 with Fusion's update inputs (node field, pose, caches, mip); K5
+     fusing config 6's 8 views of 512² into an empty 512³ volume; K3 on
+     bench512_sharded's equivalence inputs (the cache-less update, C = 16,
+     k = 3, no coordinates); each timed beside its twin and its bound;
   18. the sharded frame (parallel/frame_sharded.py) at world size 1 on
      NCCL, in process through parallel/launch.py, on the bench's 256³
      scene (init and one frame), held against init_canonical +
      fusion_frame by the JAX package's tests/test_frame_sharded.py:75-97
      criteria (radius rtol 1e-6, equal n_corr, costs rtol 0.05 before and
      0.10 after, a descent, p99.9 |Δvalues| < 0.25, nodes within 16); its
-     synced wall printed.
+     synced wall printed;
+  19. the sharded 512³ bench (benchmarks/bench512_sharded.py) at world
+     size 1 on NCCL, in process: the equivalence (the sharded non-rigid
+     update against the dense one, both deviations exactly 0) and the
+     full sharded frame (descended, no overflow, a finite cost), each
+     JSON line and peak memory printed;
+  20. the round-5 tools at 256³, short: profile_solve5 and exp_freeze
+     (--reps 1), exp_solver (--reps 1, a 2-frame chain, arm gn2_cg16),
+     profile_frame5 (2 frames, base and solve_iters=0), sweep_solver5
+     (2 frames, 2,16), sweep_frame5 (2 frames, si1): every value finite,
+     K1 and K2 launched;
+  21. the native I/O library (g++ here): the body mesh read and written,
+     a .dist volume read, each equal (bytes for the writer) to the
+     Python path.
 The last lines are the kernel table as JSON, the card, then
 ``{"ok": true, "device": {...}}``. No result is printed without a GPU.
 """
@@ -886,36 +900,38 @@ def quiet(fn):
 
 def phase_tools(torch):
     """The profiling entry points at 256³, in this process:
-    profile_trilerp and profile_upd at their defaults, profile_mc,
-    profile_solve and profile_frame with --reps 3 and --trace into a
-    temporary directory (deleted after each tool), then profile_corr5 at
-    its defaults. Returns {tool: rows}."""
+    profile_trilerp and profile_upd at their defaults, profile_mc and
+    profile_frame with --reps 1 and --trace into a temporary directory
+    (deleted after each tool), profile_solve with --reps 1, then
+    profile_corr5 at its defaults. Returns {tool: rows}."""
     from dynamicfusion_body_tpu_torch.tools import (
         profile_corr5, profile_frame, profile_mc, profile_solve,
         profile_trilerp, profile_upd)
 
-    runs = ((profile_trilerp, False), (profile_upd, False),
-            (profile_mc, True), (profile_solve, True), (profile_frame, True),
-            (profile_corr5, False))
+    # (tool, traced): None runs the tool at its defaults
+    runs = ((profile_trilerp, None), (profile_upd, None),
+            (profile_mc, True), (profile_solve, False),
+            (profile_frame, True), (profile_corr5, None))
     out = {}
-    for tool, short in runs:
+    for tool, traced in runs:
         name = tool.__name__.rsplit(".", 1)[1]
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory() as tmp:
-            argv = ["--reps", "3", "--trace", tmp] if short else []
+            argv = ([] if traced is None else ["--reps", "1"]
+                    + (["--trace", tmp] if traced else []))
             with contextlib.redirect_stdout(HashLines(sys.stdout)):
                 out[name] = tool.main(argv)
-        print(f"# {name}{' --reps 3 --trace' if short else ''}: "
+        print(f"# {name} {' '.join(argv[:3])}: "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         torch.cuda.empty_cache()
     # a traced row that is not whole (a port kernel traced fewer times
     # than its wrapper launched it, or a launch without its kernel) says so
     # and has no busy share; the single-launch rows must be whole
     lost = {f"{tool.__name__.rsplit('.', 1)[1]}.{row}": r["trace_lost"]
-            for tool, short in runs if short
+            for tool, traced in runs if traced
             for row, r in out[tool.__name__.rsplit(".", 1)[1]].items()
             if r["trace_lost"]}
-    n = sum(len(out[t.__name__.rsplit(".", 1)[1]]) for t, s in runs if s)
+    n = sum(len(out[t.__name__.rsplit(".", 1)[1]]) for t, tr in runs if tr)
     print(f"# traced rows whole: {n - len(lost)} of {n}; not whole: {lost}")
     for tool, row in (("profile_mc", "mc_case_cross"),
                       ("profile_frame", "trilerp_k4")):
@@ -1667,6 +1683,128 @@ def phase_sharded(torch, dev):
     return f["wall_s"]
 
 
+def phase_sharded512(torch):
+    """The sharded 512³ bench (benchmarks/bench512_sharded.py) at world
+    size 1 on NCCL, in this process: the equivalence (the sharded update
+    against the dense one: both deviations exactly 0) and the full frame
+    (descended, no overflow, a finite cost); each JSON line printed with
+    the arms' peak memory; both must be ``ok``."""
+    from dynamicfusion_body_tpu_torch.benchmarks import bench512_sharded
+
+    out = {}
+    for name, argv in (("equivalence", []), ("full frame",
+                                             ["--full-frame"])):
+        t0 = time.perf_counter()
+        res, lines = quiet(lambda argv=argv: bench512_sharded.main(argv))
+        line = json.loads(lines[-1])
+        peaks = {k: round(res[k], 2) for k in ("peak_dense_gib",
+                                               "peak_sharded_gib",
+                                               "peak_gib") if k in res}
+        print(f"# bench512_sharded {name}, 512^3, world 1, NCCL: "
+              f"{time.perf_counter() - t0:.1f} s in all; peak GiB {peaks}; "
+              f"{json.dumps(line)}")
+        check(line["ok"] is True, f"bench512_sharded {name}: {line}")
+        out[name] = line
+    eq, ff = out["equivalence"], out["full frame"]
+    check(eq["max_dev_values"] == 0.0 and eq["max_dev_weights"] == 0.0,
+          f"bench512_sharded: the sharded update differs: {eq}")
+    check(ff["descended"] and not ff["overflow"],
+          f"bench512_sharded --full-frame: {ff}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_tools5(torch):
+    """The round-5 solve and frame tools at 256³ in this process, short:
+    profile_solve5, exp_freeze and exp_solver (--reps 1; exp_solver's
+    chain at 2 frames, arm gn2_cg16), profile_frame5 (--frames 2, the
+    base and solve_iters=0), sweep_solver5 (--frames 2, 2,16) and
+    sweep_frame5 (--frames 2, si1). Every row must be finite; K1 and K2
+    must launch (the frames' MC and update). Returns the launches."""
+    from dynamicfusion_body_tpu_torch.ops.mc_cuda import mc_case_cross
+    from dynamicfusion_body_tpu_torch.ops.trilerp_cuda import (
+        warp_trilerp_bricks_cached)
+    from dynamicfusion_body_tpu_torch.tools import (
+        exp_freeze, exp_solver, profile_frame5, profile_solve5,
+        sweep_frame5, sweep_solver5)
+
+    kernels = (mc_case_cross, warp_trilerp_bricks_cached)
+    for kern in kernels:
+        kern.launches = 0
+    short = ["--frames", "2"]
+    for tool, argv in ((profile_solve5, ["--reps", "1"]),
+                       (exp_freeze, ["--reps", "1"]),
+                       (exp_solver, ["--reps", "1", *short, "--arm",
+                                     "gn2_cg16"]),
+                       (profile_frame5, [*short, "solve_iters=0"]),
+                       (sweep_solver5, [*short, "2,16"]),
+                       (sweep_frame5, [*short, "si1"])):
+        name = tool.__name__.rsplit(".", 1)[1]
+        t0 = time.perf_counter()
+        out, _ = quiet(lambda tool=tool, argv=argv: tool.main(argv))
+        if name in ("profile_solve5", "exp_freeze"):
+            vals = [r["wall_ms"] for r in out.values()]
+        elif name == "exp_solver":
+            vals = ([r["wall_ms"] for r in out.rows.values()]
+                    + [c["ms"] for c in out.chain.values()]
+                    + [a["cost"] for a in out.acc.values()])
+        elif name == "profile_frame5":
+            vals = [r["ms"] for r in out.values()]
+        else:
+            vals = [v for r in out.rows.values()
+                    for v in (r["ms"], r["cost_f"], r["ratio"])]
+        print(f"# {name} {' '.join(argv)}: {time.perf_counter() - t0:.1f} "
+              f"s, {len(vals)} values")
+        check(vals and all(np.isfinite(v) for v in vals),
+              f"{name}: a value is not finite: {vals}")
+        torch.cuda.empty_cache()
+    launches = {k.__name__: k.launches for k in kernels}
+    print(f"# round-5 tools launches {launches}")
+    check(all(launches.values()), f"the round-5 tools launched {launches}")
+    return launches
+
+
+def phase_native_io(torch):
+    """The native I/O library (dynamicfusion_body_tpu_torch/native, built
+    by g++ here): meshes/original.obj read natively and by the Python
+    parser (equal), written by both writers with normals and a
+    grid→world map (equal bytes), and a 65³ .dist volume read both ways
+    (equal); the native calls timed."""
+    from dynamicfusion_body_tpu_torch.benchmarks.suite import REF_MESH
+    from dynamicfusion_body_tpu_torch.io.mesh_io import load_obj, save_obj
+    from dynamicfusion_body_tpu_torch.io.sdf_io import load_sdf, save_sdf
+
+    t0 = time.perf_counter()
+    v, f = load_obj(str(REF_MESH))
+    t_read = time.perf_counter() - t0
+    v2, f2 = load_obj(str(REF_MESH), native=False)
+    check(np.array_equal(v, v2) and np.array_equal(f, f2),
+          "native OBJ reader differs from the Python parser")
+    ind = np.eye(4)
+    ind[:3, :3] *= 0.5
+    ind[:3, 3] = (1.0, -2.0, 3.0)
+    vol = np.random.default_rng(0).standard_normal((65,) * 3).astype(
+        np.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        a, b = os.path.join(tmp, "a.obj"), os.path.join(tmp, "b.obj")
+        t0 = time.perf_counter()
+        save_obj(a, v, f, normals=v, ind=ind)
+        t_write = time.perf_counter() - t0
+        save_obj(b, v, f, normals=v, ind=ind, native=False)
+        with open(a, "rb") as fa, open(b, "rb") as fb:
+            check(fa.read() == fb.read(),
+                  "native OBJ writer's bytes differ from the Python path's")
+        d = os.path.join(tmp, "v.dist")
+        save_sdf(d, vol, [-1, -1, -1], [1, 1, 1])
+        nat, py = load_sdf(d), load_sdf(d, native=False)
+        check(all(np.array_equal(x, y) for x, y in zip(nat[:3], py[:3])),
+              "native .dist reader differs from the Python path")
+    print(f"# native I/O: {len(v)} verts {len(f)} faces read in "
+          f"{t_read * 1e3:.1f} ms (build included), written in "
+          f"{t_write * 1e3:.1f} ms; bytes, OBJ and .dist equal to the "
+          "Python paths")
+
+
 def phase_k512(torch, dev, fus, live):
     """K1, K2 and K5 held against their twins at 512³ shapes: K1 on the
     bench512 Fusion's canonical volume and on ``live`` at full resolution
@@ -1792,7 +1930,53 @@ def phase_k512(torch, dev, fus, live):
                                     n_not_equal=n_neq, **b)
     del v0, w0, depths
     torch.cuda.empty_cache()
+    rows["warp_trilerp_bricks"] = k3_512(torch, dev)
     return rows
+
+
+def k3_512(torch, dev):
+    """K3 against its twin at 512³ on bench512_sharded's equivalence
+    inputs (parallel/ranks.py:bench512_scene: the seeded 1024-node field
+    with perturbed DQs, the live bumpy sphere, the pose): the cache-less
+    update's own call, the two-level candidates at C = 16, k = 3, no
+    coordinates. The unequal count is printed and must be 0; the kernel
+    is timed beside its twin (one synced call) and its bound."""
+    from dynamicfusion_body_tpu_torch.models.warp_field import (
+        brick_candidates_2level)
+    from dynamicfusion_body_tpu_torch.ops.trilerp_cuda import (
+        warp_trilerp_bricks, warp_trilerp_bricks_ref)
+    from dynamicfusion_body_tpu_torch.parallel.ranks import bench512_scene
+
+    R, k = 512, 3
+    sc = bench512_scene(dev, R, 0)
+    wf = sc.wf
+    cand = brick_candidates_2level(wf, (R,) * 3, 8, 16)
+    args = (sc.live, wf.node_pos, wf.node_w, wf.active, wf.node_dq, cand,
+            sc.lw)
+    got = warp_trilerp_bricks(*args, brick=8, k=k, coords=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = warp_trilerp_bricks_ref(*args, brick=8, k=k)
+    torch.cuda.synchronize()
+    twin_s = time.perf_counter() - t0
+    n_neq = n_not_equal(got, ref)
+    n_taps = live_taps(sc.live.shape, ref[3:])
+    del got, ref
+    torch.cuda.empty_cache()
+    ms = cuda_ms(torch, lambda: warp_trilerp_bricks(*args, brick=8, k=k,
+                                                    coords=False))
+    b, nbytes, nops = k3_bound(sc.live, wf, cand, k, False, n_taps)
+    print(f"# K3 512^3 (bench512_sharded's equivalence inputs, C 16, k 3, "
+          f"{cand.shape[0]} bricks, {int(wf.num_active)} nodes): {n_neq} "
+          f"voxels not bit-equal to the twin; kernel {ms:.4f} ms, twin "
+          f"{twin_s * 1e3:.1f} ms (one synced call), bound "
+          f"{b['bound_ms']:.4f} ms ({b['bound_by']}; {nbytes / 1e6:.1f} MB, "
+          f"{nops / 1e9:.3f} G ops, taps {n_taps}), {b['bound_ms'] / ms:.1%} "
+          f"of it")
+    check(n_neq == 0, f"K3 at 512^3: {n_neq} voxels differ from the twin")
+    del sc, cand, args
+    torch.cuda.empty_cache()
+    return dict(ms=ms, plain_ms=twin_s * 1e3, n_not_equal=n_neq, **b)
 
 
 def k5_warp_instructions(torch, culled, ok_x, img, px, py, u, v, pw, depth,
@@ -2546,9 +2730,16 @@ def main() -> int:
     phase_k512(torch, dev, rep.fus, rep.vols[2])
     del rep
     torch.cuda.empty_cache()
-    stamp("K1, K2, K5 at 512^3")
+    stamp("K1, K2, K5, K3 at 512^3")
     phase_sharded(torch, dev)
     stamp("sharded frame")
+    phase_sharded512(torch)
+    stamp("bench512_sharded, both modes")
+    for name, n in phase_tools5(torch).items():
+        total[name] += n
+    stamp("round-5 tools")
+    phase_native_io(torch)
+    stamp("native I/O")
 
     table = {"kernels": [
         dict(name=name, route="cuda", source=f"{PKG}_torch/csrc/{src}",

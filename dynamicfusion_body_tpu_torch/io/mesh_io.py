@@ -1,5 +1,8 @@
-"""OBJ mesh read/write — a copy of ``dynamicfusion_body_tpu/io/mesh_io.py``
-(Python path only; the native C++ parser is ROADMAP Queue 1 item 16).
+"""OBJ mesh read/write — a copy of ``dynamicfusion_body_tpu/io/mesh_io.py``.
+:func:`load_obj` and :func:`save_obj` go through the native C++ parser
+and writer (``native/dfio.cc``, built at first use); ``native=False``
+takes the Python path, which writes the same bytes and which the tests
+hold the native one to. A failed native build raises: nothing falls back.
 
 Reference writers: core/fusion.py:577-586 (plain ``v``/``vn``/``f``) and
 core/fusion_dm.py:339-354 (vertices/normals mapped grid→world through the
@@ -12,8 +15,12 @@ from __future__ import annotations
 import numpy as np
 
 
-def load_obj(path):
+def load_obj(path, native=True):
     """Returns (vertices (V,3) f32, faces (F,3) i32 zero-based)."""
+    if native:
+        from ..native import read_obj
+
+        return read_obj(path)
     verts, faces = [], []
     with open(path) as f:
         for line in f:
@@ -33,10 +40,15 @@ def load_obj(path):
     return v, f
 
 
-def save_obj(path, verts, faces, normals=None, ind=None):
+def save_obj(path, verts, faces, normals=None, ind=None, native=True):
     """Write an OBJ. With ``ind`` (4,4), vertices/normals are mapped
     grid→world via its rotation+translation first and faces are written as
     ``v//vn`` (core/fusion_dm.py:339-354)."""
+    if native:
+        from ..native import write_obj
+
+        write_obj(path, verts, faces, normals=normals, ind=ind)
+        return
     verts = np.asarray(verts, dtype=np.float64)
     faces = np.asarray(faces, dtype=np.int64)
     if normals is not None:

@@ -1,8 +1,9 @@
 """Binary ``.dist`` SDF volumes — counterpart of
 ``dynamicfusion_body_tpu/io/sdf_io.py`` (numpy-only there too; copied,
-because importing that package imports jax). The Python path only: the
-JAX package's native C++ reader (``native/dfio.cc``) is ROADMAP Queue 1
-item 16.
+because importing that package imports jax). :func:`load_sdf` reads
+through the native C++ reader (``native/dfio.cc``, built at first use);
+``native=False`` takes the Python path, which the tests hold it to. A
+failed native build raises: nothing falls back.
 
 File format (documented in the reference, core/sdf.py:10-21): three int32
 resolutions (x and y stored negated), float64 bbox min/max, float32
@@ -16,9 +17,19 @@ from __future__ import annotations
 import numpy as np
 
 
-def load_sdf(file_path, read_closest_points=False, verbose=False):
+def load_sdf(file_path, read_closest_points=False, verbose=False,
+             native=True):
     """Returns (b_min (3,), b_max (3,), volume (rx+1,ry+1,rz+1) f32,
-    closest_points (rx+1,ry+1,rz+1,3) f32 or None), numpy arrays."""
+    closest_points (rx+1,ry+1,rz+1,3) f32 or None), numpy arrays. The
+    closest-point field is parsed by the Python path only, as in the JAX
+    package."""
+    if native and not read_closest_points:
+        from ..native import read_dist
+
+        b_min, b_max, volume = read_dist(file_path)
+        if verbose:
+            print("loaded volume from %s" % file_path)
+        return b_min, b_max, volume, None
     with open(file_path, "rb") as fp:
         res_x = -int(np.fromfile(fp, dtype=np.int32, count=1)[0])
         res_y = -int(np.fromfile(fp, dtype=np.int32, count=1)[0])

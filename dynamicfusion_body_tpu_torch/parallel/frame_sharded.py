@@ -47,7 +47,8 @@ from ..pipeline.correspondence import (
     correspondence_candidates,
     correspondences_from_candidates,
 )
-from ..pipeline.frame import CORR_REFRESH_FRAC, FrameStats, _blend_weights
+from ..pipeline.frame import (
+    CORR_REFRESH_FRAC, FrameStats, _blend_weights, stack_rounds)
 from ..solvers.nonrigid import (
     SolverCtx,
     gn_solve_core,
@@ -226,8 +227,9 @@ def make_fusion_frame_sharded(
             act = bool(relax)
         ell_ov = (torch.sum(torch.stack(ellovs)) if ellovs
                   else torch.zeros((), dtype=torch.long, device=dev))
-        return (node_dq, lw_dq, torch.stack(cbs), torch.stack(cbhs),
-                torch.stack(cas), n_corr0, corr_risk, corr_refresh, ell_ov)
+        return (node_dq, lw_dq, stack_rounds(cbs, dev),
+                stack_rounds(cbhs, dev), stack_rounds(cas, dev), n_corr0,
+                corr_risk, corr_refresh, ell_ov)
 
     def frame(values, weights, live, wf, lw_dq):
         M = wf.capacity

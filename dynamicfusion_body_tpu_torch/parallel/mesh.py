@@ -79,11 +79,13 @@ def make_mesh(n_devices: int, init_file: str, backend: str = "nccl",
     """Join this job's process group as ``rank`` of ``n_devices`` through
     a ``FileStore`` at ``init_file`` (a path no earlier job used) and
     return the mesh, on ``backend``: "nccl" (the default) on
-    ``cuda:<rank>``, the ranks of one host, or "gloo" on the CPU. A
-    failing NCCL init raises; nothing falls back to another backend or
-    device. Every collective fails after ``GROUP_TIMEOUT_S``.
-    ``parallel/launch.py`` starts the ranks and calls this in each."""
-    device = _device(backend, rank)
+    ``cuda:<rank>``, the ranks of one host, or "gloo" on the CPU. NCCL
+    takes one card per rank: more ranks than cards raise (two ranks on
+    one card fail or hang inside NCCL). A failing NCCL init raises;
+    nothing falls back to another backend or device. Every collective
+    fails after ``GROUP_TIMEOUT_S``. ``parallel/launch.py`` starts the
+    ranks and calls this in each."""
+    device = _device(backend, rank, n_devices)
     if device.type == "cuda":
         torch.cuda.set_device(device)
     dist.init_process_group(
@@ -93,12 +95,16 @@ def make_mesh(n_devices: int, init_file: str, backend: str = "nccl",
     return Mesh(rank, n_devices, device)
 
 
-def _device(backend: str, rank: int) -> torch.device:
+def _device(backend: str, rank: int, world: int) -> torch.device:
     if backend == "nccl":
         if not torch.cuda.is_available():
             raise RuntimeError("make_mesh: the NCCL backend needs a CUDA "
                                "device; pass backend='gloo' for the CPU")
-        return torch.device("cuda", rank % torch.cuda.device_count())
+        n_cards = torch.cuda.device_count()
+        if world > n_cards:
+            raise RuntimeError(f"make_mesh: {world} NCCL ranks need {world} "
+                               f"cards, this host has {n_cards}")
+        return torch.device("cuda", rank)
     if backend == "gloo":
         return torch.device("cpu")
     raise ValueError(f"make_mesh: unsupported backend {backend!r}: use "

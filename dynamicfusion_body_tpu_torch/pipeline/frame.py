@@ -113,6 +113,12 @@ def init_canonical(values, subsample_rate: float = 5.0, node_cap: int = 2048,
     return wf, radius
 
 
+def stack_rounds(xs, dev):
+    """The per-round costs as one (solve_iters,) tensor; empty when no
+    round ran (``solve_iters=0``, where JAX's scan gives (0,))."""
+    return torch.stack(xs) if xs else torch.zeros((0,), device=dev)
+
+
 def fusion_frame(
     values, weights, live, wf: WF.WarpField, lw_dq, regularization_weight,
     knn_k: int = 4, tdist: float = 0.2, wmax: float = 100.0,
@@ -309,9 +315,9 @@ def fusion_frame(
         warp_wi=warp_cache[2])
 
     stats = FrameStats(
-        cost_before=torch.stack(cbs),
-        cost_after=torch.stack(cas),
-        cost_before_h=torch.stack(cbhs),
+        cost_before=stack_rounds(cbs, dev),
+        cost_after=stack_rounds(cas, dev),
+        cost_before_h=stack_rounds(cbhs, dev),
         n_corr=n_corr0,
         n_nodes=wf.num_active,
         n_verts=mesh_out["n_verts"],

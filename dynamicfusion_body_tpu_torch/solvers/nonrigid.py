@@ -75,17 +75,19 @@ def _inv8_spd(D):
     return aug[:, :, n:]
 
 
-def data_residual(dqs_k, vert, normal, corr, wts_k, lw_dq):
-    """Point-to-plane data residual(s): dqs_k (...,k,8), vert/normal/corr
-    (...,3), wts_k (...,k) → (...)."""
+def data_residual_one(dqs_k, vert, normal, corr, wts_k, lw_dq):
+    """Point-to-plane data residual (JAX ``data_residual_one``): dqs_k
+    (...,k,8), vert/normal/corr (...,3), wts_k (...,k) → (...); one
+    vertex, or a batch of them."""
     se3 = dq_normalize8(torch.sum(wts_k[..., None] * dqs_k, dim=-2))
     p = dq_transform_point(lw_dq, dq_transform_point(se3, vert))
     n = dq_transform_normal(lw_dq, dq_transform_normal(se3, normal))
     return torch.sum(n * (p - corr), dim=-1)
 
 
-def reg_residual(dq_i, dq_j, vj, scale):
-    """Regularization residual(s) (...,3)."""
+def reg_residual_one(dq_i, dq_j, vj, scale):
+    """Regularization residual (JAX ``reg_residual_one``) (...,3); one
+    pair, or a batch of them."""
     return scale[..., None] * (dq_transform_point(dq_i, vj)
                                - dq_transform_point(dq_j, vj))
 
@@ -99,10 +101,11 @@ def _rho(z):
 def _residuals(node_dq, data_args, reg_args, lw_dq):
     verts, normals, corrs, corr_mask, nbr_idx, blend_wts = data_args
     pair_i, pair_j, pair_v, pair_scale, pair_mask = reg_args
-    r_d = data_residual(node_dq[nbr_idx], verts, normals, corrs, blend_wts,
-                        lw_dq)
+    r_d = data_residual_one(node_dq[nbr_idx], verts, normals, corrs,
+                            blend_wts, lw_dq)
     r_d = torch.where(corr_mask, r_d, 0.0)
-    r_r = reg_residual(node_dq[pair_i], node_dq[pair_j], pair_v, pair_scale)
+    r_r = reg_residual_one(node_dq[pair_i], node_dq[pair_j], pair_v,
+                           pair_scale)
     r_r = torch.where(pair_mask[:, None], r_r, 0.0)
     return r_d, r_r
 
@@ -278,7 +281,7 @@ def _data_jacobians(x, data_args, lw_dq):
     verts, normals, corrs, _, nbr_idx, blend_wts = data_args
 
     def f(d, v, n, c, w):
-        r = data_residual(d, v, n, c, w, lw_dq)
+        r = data_residual_one(d, v, n, c, w, lw_dq)
         return r, r
 
     J, r = vmap(jacfwd(f, has_aux=True))(x[nbr_idx], verts, normals, corrs,
@@ -291,12 +294,61 @@ def _reg_jacobians(x, reg_args):
     pair_i, pair_j, pair_v, pair_scale, _ = reg_args
 
     def f(di, dj, v, s):
-        r = reg_residual(di, dj, v, s)
+        r = reg_residual_one(di, dj, v, s)
         return r, r
 
     (Ji, Jj), r = vmap(jacfwd(f, argnums=(0, 1), has_aux=True))(
         x[pair_i], x[pair_j], pair_v, pair_scale)
     return r, Ji, Jj
+
+
+def jtwj_contributions(J_d, w_d, J_ri, J_rj, w_r):
+    """The JᵀWJ contribution rows (T, 64) in ``_coupling_keys`` order:
+    the k² data blocks (ka, kb) of every vertex, J_d (V, k, 8) weighted by
+    w_d (V,), then the reg blocks ii, ij, ji, jj of every pair, J_ri/J_rj
+    (P, 3, 8) weighted per component by w_r (P, 3)."""
+    Jw = J_d * w_d[:, None, None]
+    data = (Jw[:, :, None, :, None] * J_d[:, None, :, None, :])
+    data = data.permute(1, 2, 0, 3, 4).reshape(-1, 64)
+
+    def reg_outer(Jx, Jy):
+        return torch.einsum("pc,pce,pcf->pef", w_r, Jx, Jy).reshape(-1, 64)
+
+    return torch.cat([data, reg_outer(J_ri, J_ri), reg_outer(J_ri, J_rj),
+                      reg_outer(J_rj, J_ri), reg_outer(J_rj, J_rj)])
+
+
+def pcg_solve(Bl, blk, ell_nbr, rhs, lam, cg_iters: int):
+    """``cg_iters`` steps of block-Jacobi PCG on (JᵀWJ + lam·I) x = rhs:
+    Bl (M, D, 8, 8) the block-ELL table, blk (M, 8, 8) its diagonal
+    blocks, ell_nbr (M·D,) the coupled node of each slot, rhs (M, 8)."""
+    M, DC = Bl.shape[:2]
+    Dinv = _inv8_spd(blk + lam * torch.eye(8, dtype=blk.dtype,
+                                           device=blk.device))
+
+    def precond(r):
+        return torch.einsum("mab,mb->ma", Dinv, r)
+
+    def matvec(p):
+        pg = p[ell_nbr].reshape(M, DC, 8)
+        return torch.einsum("mdab,mdb->ma", Bl, pg) + lam * p
+
+    sol = torch.zeros_like(rhs)
+    rvec = rhs
+    z = precond(rhs)
+    d = z
+    rz = torch.sum(rhs * z)
+    for _ in range(cg_iters):
+        Ad = matvec(d)
+        alpha = rz / torch.clamp_min(torch.sum(d * Ad), 1e-30)
+        sol = sol + alpha * d
+        rvec = rvec - alpha * Ad
+        z = precond(rvec)
+        rz_new = torch.sum(rvec * z)
+        beta = rz_new / torch.clamp_min(rz, 1e-30)
+        d = z + beta * d
+        rz = rz_new
+    return sol
 
 
 def gn_solve_core(node_dq, data_args, reg_args, lw_dq, gn_iters: int,
@@ -331,7 +383,6 @@ def gn_solve_core(node_dq, data_args, reg_args, lw_dq, gn_iters: int,
                                      pair_mask, M)
     reduce_ell, ell_nbr, self_ids, self_present, ell_overflow = solver_ctx.ell
     DC = ell_nbr.shape[0] // M
-    eye8 = torch.eye(8, dtype=f32, device=dev)
 
     def energy(x):
         return _energies(*_residuals(x, data_args, reg_args, lw_dq), psum)[1]
@@ -362,18 +413,8 @@ def gn_solve_core(node_dq, data_args, reg_args, lw_dq, gn_iters: int,
 
         fresh = bool(e < (1.0 - FREEZE_FRAC) * e_asm)
         if fresh:
-            Jw = J_d * w_d[:, None, None]
-            data = (Jw[:, :, None, :, None] * J_d[:, None, :, None, :])
-            data = data.permute(1, 2, 0, 3, 4).reshape(-1, 64)
-
-            def reg_outer(Jx, Jy):
-                return torch.einsum("pc,pce,pcf->pef", w_r, Jx, Jy).reshape(
-                    -1, 64)
-
-            contrib = torch.cat([data, reg_outer(J_ri, J_ri),
-                                 reg_outer(J_ri, J_rj), reg_outer(J_rj, J_ri),
-                                 reg_outer(J_rj, J_rj)])
-            blocks = reduce_ell(contrib)                       # (M·DC, 64)
+            blocks = reduce_ell(jtwj_contributions(J_d, w_d, J_ri, J_rj,
+                                                   w_r))       # (M·DC, 64)
             Bl = blocks.reshape(M, DC, 8, 8)
             blk = (blocks[self_ids] * self_present[:, None]).reshape(M, 8, 8)
             e_asm = e
@@ -381,31 +422,7 @@ def gn_solve_core(node_dq, data_args, reg_args, lw_dq, gn_iters: int,
                      / (8.0 * M) + 1e-12)
 
         def cg_solve(lam):
-            Dinv = _inv8_spd(blk + lam * eye8)
-
-            def precond(r):
-                return torch.einsum("mab,mb->ma", Dinv, r)
-
-            def matvec(p):
-                pg = p[ell_nbr].reshape(M, DC, 8)
-                return torch.einsum("mdab,mdb->ma", Bl, pg) + lam * p
-
-            sol = torch.zeros_like(rhs)
-            rvec = rhs
-            z = precond(rhs)
-            d = z
-            rz = torch.sum(rhs * z)
-            for _ in range(cg_iters):
-                Ad = matvec(d)
-                alpha = rz / torch.clamp_min(torch.sum(d * Ad), 1e-30)
-                sol = sol + alpha * d
-                rvec = rvec - alpha * Ad
-                z = precond(rvec)
-                rz_new = torch.sum(rvec * z)
-                beta = rz_new / torch.clamp_min(rz, 1e-30)
-                d = z + beta * d
-                rz = rz_new
-            return sol
+            return pcg_solve(Bl, blk, ell_nbr, rhs, lam, cg_iters)
 
         # LM trust loop on the blocks just built (or frozen)
         x_b, e_b = x, e

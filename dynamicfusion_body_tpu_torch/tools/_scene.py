@@ -133,3 +133,43 @@ def trilerp_inputs(res: int, dev: torch.device):
     return (torch.from_numpy(live).to(dev),
             *(torch.from_numpy(np.ascontiguousarray(w[..., a])).to(dev)
               for a in range(3)))
+
+
+def sharded_volumes(res: int):
+    """The canonical and live volumes of ``benchmarks/bench512_sharded.py
+    :51-55`` at ``res`` (numpy): bumpy spheres of radius 0.27·res and bump
+    amplitude 0.02·res at the centre and 2, 1, 0 voxels off it, bump
+    phases 0 and 0.05."""
+    canonical = bumpy_sdf(res, (res // 2,) * 3, 0.27 * res, 0.02 * res, 3.0,
+                          0.0)
+    live = bumpy_sdf(res, (res // 2 + 2, res // 2 + 1, res // 2),
+                     0.27 * res, 0.02 * res, 3.0, 0.05)
+    return canonical, live
+
+
+SHARDED_NODE_CAP = 1024
+
+
+def sharded_field(res: int, canonical, seed: int = 0):
+    """The seeded part of ``bench512_sharded.py:49-70`` (numpy), in its
+    draw order from ``RandomState(seed)``: 8·1024 random lattice points,
+    the 1024 nearest the canonical's zero set as graph vertices, node DQs
+    perturbed by 0.02·randn about the identity, and canonical weights
+    ``rand(res³)·4``. Returns (verts (1024, 3), node_dq (1024, 8),
+    weights (res³)); the graph radius is 0.05·res and the global pose
+    :func:`sharded_pose`."""
+    rng = np.random.RandomState(seed)
+    pts = rng.rand(8 * SHARDED_NODE_CAP, 3) * (res - 1)
+    vals = canonical[tuple(pts.astype(np.int32).T)]
+    near = np.argsort(np.abs(vals))[:SHARDED_NODE_CAP]
+    verts = pts[near].astype(np.float32)
+    dqs = (rng.randn(SHARDED_NODE_CAP, 8) * 0.02).astype(np.float32)
+    dqs[:, 0] += 1.0
+    weights = (rng.rand(res, res, res) * 4).astype(np.float32)
+    return verts, dqs, weights
+
+
+def sharded_pose(res: int):
+    """The equivalence's global pose: a 0.02·res translation in the DQ's
+    dual part (``bench512_sharded.py:71``)."""
+    return np.array([1.0, 0, 0, 0, 0, 0.02 * res, 0, 0], np.float32)

@@ -51,8 +51,9 @@ HBM_BPS = 3.35e12
 F32_OPS = 67e12
 
 
-def parse_args(argv, doc: str, reps: int):
-    """The tools' common flags: --res, --device, --reps, --trace."""
+def parse_args(argv, doc: str, reps: int, extend=None):
+    """The tools' common flags: --res, --device, --reps, --trace;
+    ``extend(parser)`` adds a tool's own."""
     ap = argparse.ArgumentParser(description=doc.splitlines()[0])
     ap.add_argument("--res", type=int, default=256,
                     help="volume resolution, a multiple of 16 (default 256)")
@@ -64,6 +65,8 @@ def parse_args(argv, doc: str, reps: int):
     ap.add_argument("--trace", default=None, metavar="DIR",
                     help="write a torch.profiler trace of each row's timed "
                          "calls under DIR and report its busy share")
+    if extend is not None:
+        extend(ap)
     args = ap.parse_args(argv)
     if args.res < 32 or args.res % 16:
         ap.error("--res must be a multiple of 16, at least 32")

@@ -1,6 +1,8 @@
 """The port and chip_smoke.py import neither JAX nor the JAX package, nor
 the JAX side's scripts (bench.py, benchmarks/suite.py): the machine with
-the GPU has no JAX, and the port keeps its own copies of what it needs."""
+the GPU has no JAX, and the port keeps its own copies of what it needs
+(the native I/O source and the round-5 tools included). Nor does
+importing them import matplotlib, which that machine lacks."""
 
 import subprocess
 import sys
@@ -19,7 +21,14 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax",
                                     "dynamicfusion_body_tpu", "bench",
                                     "suite", "benchmarks"))
-assert len(mods) >= 70, mods
+assert len(mods) >= 80, mods
+new = {"benchmarks.bench512_sharded", "native", "utils.visualize",
+       "tools._frames", "tools.profile_solve5", "tools.exp_freeze",
+       "tools.exp_solver", "tools.profile_frame5", "tools.sweep_solver5",
+       "tools.sweep_frame5"}
+missing = {m for m in new if pkg.__name__ + "." + m not in mods}
+assert not missing, missing
+assert "matplotlib" not in sys.modules  # imported lazily, on a call
 assert not bad, bad
 print("ok")
 """
