@@ -160,7 +160,21 @@ Phases, each of which raises on failure (exit code 1):
      K1 and K2 launched;
   21. the native I/O library (g++ here): the body mesh read and written,
      a .dist volume read, each equal (bytes for the writer) to the
-     Python path.
+     Python path;
+  22. (run right after phase 15) the ablation grid
+     (tools/make_ablation.py) at its defaults, 128³ over 3 frames, four
+     arms, the CNN arm on the weights phase 15 trained at 64² (never
+     skipped), into the git-ignored data/ablation/: each arm's wall, mesh
+     counts and K1/K2 launches printed, K1 launched in every arm and K2
+     in every fused one, ``original`` equal in counts to
+     meshes/original.obj with its vertex-position difference printed, and
+     each mesh's symmetric mean and p95 distance to the committed mesh of
+     its name printed;
+  23. the microbenchmarks at their default shapes, --reps 3:
+     profile_mc2 (256³, live caps), profile_prims and profile_prims2
+     (256³ sizes), profile_solver and exp_asm (M 4096, V 32,768): every
+     row finite, exp_asm's layouts within EXP_ASM_RTOL of the current
+     assembly.
 The last lines are the kernel table as JSON, the card, then
 ``{"ok": true, "device": {...}}``. No result is printed without a GPU.
 """
@@ -252,6 +266,13 @@ CNN_TRAIN_STEPS, CNN_TRAIN_SIZE, CNN_CLASSES, CNN_VIEWS = 600, 64, 16, 6
 # Queue 3). The gate is held at the rate of the JAX package's stability
 # recipe, which converged in every run.
 CNN_GATE_LR = 3e-4
+# phase 22: the committed canonical mesh of the ablation grid (the JAX
+# tool's output, tools/make_ablation.py), which the port's must reproduce
+ABLATION_ORIGINAL = (22982, 45960)
+# phase 23: exp_asm's sorted-segment layouts against index_add_, relative
+# to the table's largest magnitude (their prefix sums over T = 344,064
+# rows carry ~T ulps; measured 3.0e-3 on the H100, 1.2e-3 on the CPU)
+EXP_ASM_RTOL = 1e-2
 
 
 class SmokeFailure(RuntimeError):
@@ -2457,7 +2478,7 @@ def phase_cnn(torch, dev, clpts_err, stamp):
     Fusion(use_cnn=True) frame on config 7's scene with those weights,
     finite with valid correspondences, its surface error printed beside
     config 7's closest-point value. Returns the launches of K1, K2 and K5
-    in the phase."""
+    in the phase and the path of train_dhbc's weights."""
     from dynamicfusion_body_tpu_torch.benchmarks import bench_cnn
     from dynamicfusion_body_tpu_torch.ops.fusion_cuda import fuse_depth_multi
     from dynamicfusion_body_tpu_torch.ops.mc_cuda import mc_case_cross
@@ -2542,6 +2563,78 @@ def phase_cnn(torch, dev, clpts_err, stamp):
     check(all(n > 0 for n in launches.values()),
           f"CNN phase launches {launches}")
     torch.cuda.empty_cache()
+    return launches, rep["out"]
+
+
+def phase_ablation(torch, weights):
+    """Phase 22: tools/make_ablation.py at its defaults (128³, 3 frames,
+    four arms) with the CNN arm on ``weights`` and ``--compare meshes``.
+    Returns the launches of K1 and K2 over the arms."""
+    from dynamicfusion_body_tpu_torch.tools import make_ablation
+
+    t0 = time.perf_counter()
+    rep, _ = quiet(lambda: make_ablation.main(
+        ["--cnn-weights", str(weights), "--compare", str(ROOT / "meshes")]))
+    arms = rep["arms"]
+    print(f"# make_ablation: {len(arms)} arms in "
+          f"{time.perf_counter() - t0:.1f} s into "
+          f"{Path(rep['out_dir']).relative_to(ROOT)}")
+    check(list(arms) == [a[0] for a in make_ablation.ARMS],
+          f"make_ablation ran {list(arms)}")
+    for name, a in arms.items():
+        c = a["vs_ref"]
+        print(f"# ablation {name}: {a['wall_s']:.2f} s, {a['n_verts']} "
+              f"verts / {a['n_faces']} faces (committed {c['n_verts'][1]} "
+              f"/ {c['n_faces'][1]}), launches K1 {a['k1']} K2 {a['k2']}; "
+              f"symmetric distance to meshes/{name}.obj mean "
+              f"{c['mean']:.6f} p95 {c['p95']:.6f} voxels"
+              + ("" if c["max_pos"] is None else
+                 f", max |Δ position| {c['max_pos']:.3e}"))
+        check(a["k1"] > 0, f"ablation {name}: no K1 launch")
+        check(name == "original" or a["k2"] > 0,
+              f"ablation {name}: no K2 launch")
+    orig = arms["original"]
+    check((orig["n_verts"], orig["n_faces"]) == ABLATION_ORIGINAL,
+          f"ablation original: {orig['n_verts']} / {orig['n_faces']}, "
+          f"committed {ABLATION_ORIGINAL}")
+    torch.cuda.empty_cache()
+    return {"mc_case_cross": sum(a["k1"] for a in arms.values()),
+            "warp_trilerp_bricks_cached": sum(a["k2"]
+                                              for a in arms.values())}
+
+
+def phase_microbench(torch):
+    """Phase 23: profile_mc2, profile_prims, profile_prims2,
+    profile_solver and exp_asm at their default shapes with --reps 3, in
+    this process; every row finite, exp_asm's layouts within EXP_ASM_RTOL
+    of index_add_. Returns K1's launches (profile_mc2 and the case-build
+    row)."""
+    from dynamicfusion_body_tpu_torch.ops.mc_cuda import mc_case_cross
+    from dynamicfusion_body_tpu_torch.tools import (
+        exp_asm, profile_mc2, profile_prims, profile_prims2, profile_solver)
+
+    mc_case_cross.launches = 0
+    for tool in (profile_mc2, profile_prims, profile_prims2, profile_solver,
+                 exp_asm):
+        name = tool.__name__.rsplit(".", 1)[1]
+        t0 = time.perf_counter()
+        rows, _ = quiet(lambda tool=tool: tool.main(["--reps", "3"]))
+        vals = [r[k] for r in rows.values()
+                for k in ("wall_ms", "event_ms", "bound_ms")]
+        print(f"# {name} --reps 3: {time.perf_counter() - t0:.1f} s, "
+              f"{len(rows)} rows; launch-bound: "
+              + (", ".join(k for k, r in rows.items()
+                           if r.get("launch_bound")) or "none"))
+        check(rows and all(np.isfinite(v) for v in vals),
+              f"{name}: a value is not finite: {vals}")
+        if tool is exp_asm:
+            bad = {k: (r["max_diff"], r["scale"]) for k, r in rows.items()
+                   if not r["max_diff"] <= EXP_ASM_RTOL * r["scale"]}
+            check(not bad, f"exp_asm: layouts off the assembly: {bad}")
+        torch.cuda.empty_cache()
+    launches = {"mc_case_cross": mc_case_cross.launches}
+    print(f"# microbenchmark launches {launches}")
+    check(launches["mc_case_cross"] > 0, "the microbenchmarks launched no K1")
     return launches
 
 
@@ -2692,9 +2785,13 @@ def main() -> int:
     del verts, faces, maps, depths
     torch.cuda.empty_cache()
 
-    for name, n in phase_cnn(torch, dev, c7_errs[0], stamp).items():
+    launches, weights = phase_cnn(torch, dev, c7_errs[0], stamp)
+    for name, n in launches.items():
         total[name] += n
     stamp("CNN path")
+    for name, n in phase_ablation(torch, weights).items():
+        total[name] += n
+    stamp("ablation grid")
 
     phase_bare_window(torch)
     kernels = {k.__name__: k for k in (
@@ -2740,6 +2837,9 @@ def main() -> int:
     stamp("round-5 tools")
     phase_native_io(torch)
     stamp("native I/O")
+    for name, n in phase_microbench(torch).items():
+        total[name] += n
+    stamp("microbenchmarks")
 
     table = {"kernels": [
         dict(name=name, route="cuda", source=f"{PKG}_torch/csrc/{src}",

@@ -1,8 +1,7 @@
-"""Typed configuration of the multi-view fusion pipeline — a copy of the
-part of ``dynamicfusion_body_tpu/config.py`` that ``FusionDM`` and the CLI
-use (the JAX package's ``__init__`` imports jax, so it is copied, not
-imported). The JAX ``FusionConfig`` is not copied: neither the CLI nor
-``Fusion`` reads it.
+"""Typed configuration of the fusion pipelines — a copy of
+``dynamicfusion_body_tpu/config.py`` (the JAX package's ``__init__``
+imports jax, so it is copied, not imported). A JSON file written by
+either package's ``save_config`` loads in the other with equal fields.
 
 Dataclasses that serialize to/from JSON and drive the CLI, in place of the
 reference's constructor kwargs and in-source harness booleans (SURVEY
@@ -42,6 +41,30 @@ class CapacityConfig:
     vert_cap: int = 1 << 16
     face_cap: int = 1 << 17
     node_cap: int = 2048
+
+
+@dataclass
+class FusionConfig:
+    """Non-rigid pipeline hyperparameters (reference core/fusion.py:19-24,
+    50 and solve kwargs at 327-333)."""
+
+    trunc_distance: float = 0.2
+    subsample_rate: float = 5.0
+    knn: int = 4
+    marching_cubes_step_size: int = 3
+    tolerance: float = 0.2
+    tukey_data_weight: float = 0.2
+    huber_regularization_weight: float = 0.001
+    regularization_weight: float = 1.0
+    method: str = "clpts"  # or "cnn"
+    use_cnn: bool = False
+    write_warpfield: bool = True
+    verbose: bool = False
+    capacities: CapacityConfig = field(default_factory=CapacityConfig)
+
+    # solver controls (no reference analogue — scipy internals)
+    gn_iters: int = 8
+    cg_iters: int = 32
 
 
 @dataclass

@@ -146,6 +146,13 @@ def _own_slab(fused, X: int, lo: int, hi: int):
     return (fused.reshape(X, -1) & keep[:, None].to(fused.dtype)).reshape(-1)
 
 
+def crossing_edges(fused):
+    """The sorted ids of the crossing lattice edges of the K1 words
+    ``fused`` (flat): ``nonzero`` of the x, y and z flag planes in turn."""
+    flat_mask = torch.cat([((fused >> (8 + a)) & 1).bool() for a in range(3)])
+    return torch.nonzero(flat_mask).flatten()
+
+
 def mc_vertices(vol, fused, level: float, vert_cap: int,
                 x_index_offset: int = 0):
     """The vertex stage: one vertex per crossing lattice edge of the K1
@@ -156,8 +163,7 @@ def mc_vertices(vol, fused, level: float, vert_cap: int,
     3)), the last four padded or cut to ``vert_cap``."""
     X, Y, Z = vol.shape
     nxyz = X * Y * Z
-    flat_mask = torch.cat([((fused >> (8 + a)) & 1).bool() for a in range(3)])
-    edges = torch.nonzero(flat_mask).flatten()      # sorted edge ids
+    edges = crossing_edges(fused)
     ev = _pad_to(edges, vert_cap)
     ea = ev // nxyz
     elin = ev % nxyz

@@ -11,10 +11,28 @@ directly, so that arithmetic goes. Each row here gets two numbers:
   host work and host syncs included;
 * ``event_ms``: the mean time between CUDA events around ``reps`` chained
   calls after a warm-up call — the stream's time, which includes the idle
-  gaps where the host holds the card back.
+  gaps where the host holds the card back. With ``reps`` 1 the chain is
+  the timed call itself, its events recorded around it, which spares a
+  long row its third call.
 
 A row given a ``bound_ms`` (and ``floor_ms``, a bound counted in whole
-32-byte sectors: :func:`live_sectors`) prints its share of each.
+32-byte sectors: :func:`live_sectors`) prints its share of each: the
+bound over ``event_ms``. The timed calls reread the same inputs, so a
+row bound by bytes that fit the card's L2 (``fits_l2``: the bound's
+bytes at most ``L2_cache_size``) can be served from L2 and beat the HBM
+bound: such a row prints no share.
+
+A row timed with ``graph=True`` whose event mean is below
+``GRAPH_BELOW_MS`` also gets ``graph_ms``: ``GRAPH_REPS`` calls captured
+in one CUDA graph and replayed, the event time over the calls — the
+stream's time without a host launch per kernel (the JAX tools' loop
+inside one program). Such a row is ``launch_bound`` when ``graph_ms`` is
+below 2/3 of ``event_ms``: the host's launches, not the card, set its
+pace. The limit is 10 ms, not the 20 µs of a single short kernel: a
+row of a few small kernels has an event mean of 20-100 µs on the H100
+because the host paces it (PyTorch's per-call host cost), and its graph
+time shows what the card takes. The graph time gets no share of its
+own. Only rows whose calls never wait on the host can be captured.
 
 On the CPU a row has ``wall_ms`` only. With ``trace`` (the tools'
 ``--trace DIR``) each row runs once more inside
@@ -49,6 +67,10 @@ from ..utils.profiling import device_trace
 # f32 operations/s outside the tensor cores
 HBM_BPS = 3.35e12
 F32_OPS = 67e12
+# rows below this event mean (ms) are also timed as one CUDA graph of
+# GRAPH_REPS calls, when their tool asks for it (module docstring)
+GRAPH_BELOW_MS = 10.0
+GRAPH_REPS = 64
 
 
 def parse_args(argv, doc: str, reps: int, extend=None):
@@ -150,6 +172,30 @@ PORT_KERNELS = {
 }
 
 
+def graph_ms(fn, reps: int = GRAPH_REPS) -> float:
+    """The CUDA-event time of one call of ``fn`` when ``reps`` calls are
+    captured in one CUDA graph and the graph is replayed (after a warm-up
+    replay), in ms."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    g.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def trace_summary(trace, wall_ms: float, launched: dict, top: int = 5):
     """(device ms, busy share or None, the ``top`` device activities as
     (ms, count, name), what the trace lost) of a ``device_trace`` of one
@@ -191,27 +237,41 @@ class Timer:
         if self.cuda:
             torch.cuda.synchronize(self.dev)
 
-    def __call__(self, name: str, fn, **extra):
+    def __call__(self, name: str, fn, graph: bool = False, **extra):
         """Time ``fn`` (no arguments) as row ``name``; ``extra`` keys are
-        stored with the row. Returns the row."""
+        stored with the row; ``graph``: also as one CUDA graph when the
+        row is short (module docstring). Returns the row."""
         fn()
         self.sync()
+        if self.cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+        one = self.cuda and self.reps == 1
         walls = []
         for _ in range(self.reps):
             t0 = time.perf_counter()
+            if one:
+                start.record()
             fn()
+            if one:
+                end.record()
             self.sync()
             walls.append((time.perf_counter() - t0) * 1e3)
         row = dict(wall_ms=float(np.median(walls)), event_ms=None)
         if self.cuda:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(self.reps):
-                fn()
-            end.record()
-            end.synchronize()
+            if not one:
+                start.record()
+                for _ in range(self.reps):
+                    fn()
+                end.record()
+                end.synchronize()
             row["event_ms"] = start.elapsed_time(end) / self.reps
+            if graph and row["event_ms"] < GRAPH_BELOW_MS:
+                row["graph_ms"] = graph_ms(fn)
+                row["launch_bound"] = row["graph_ms"] < row["event_ms"] * 2 / 3
+            if extra.get("bound_by") == "bytes":
+                l2 = torch.cuda.get_device_properties(self.dev).L2_cache_size
+                row["fits_l2"] = extra["bound_ms"] * 1e-3 * HBM_BPS <= l2
         if self.trace is not None:
             with device_trace(os.path.join(self.trace, name),
                               cuda=self.cuda) as tr:
@@ -237,11 +297,16 @@ class Timer:
                 + (f"{ev:10.4f} ms" if ev is not None else "not measured"))
         if "bound_ms" in row:
             line += f"  bound {row['bound_ms']:.4f} ms ({row['bound_by']})"
-            if ev:
+            if row.get("fits_l2"):
+                line += ", fits L2: no HBM share"
+            elif ev:
                 line += f", {row['bound_ms'] / ev:.1%} of it"
+        if "graph_ms" in row:
+            line += (f"; graph {row['graph_ms']:.5f} ms/call"
+                     + (" (launch-bound)" if row["launch_bound"] else ""))
         if "floor_ms" in row:
             line += f"; sector floor {row['floor_ms']:.4f} ms"
-            if ev:
+            if ev and not row.get("fits_l2"):
                 line += f", {row['floor_ms'] / ev:.1%} of it"
         print(line, flush=True)
         if "busy" in row:

@@ -1,7 +1,9 @@
 """The port and chip_smoke.py import neither JAX nor the JAX package, nor
 the JAX side's scripts (bench.py, benchmarks/suite.py): the machine with
 the GPU has no JAX, and the port keeps its own copies of what it needs
-(the native I/O source and the round-5 tools included). Nor does
+(the native I/O source, the round-5 tools, the ablation grid, the MC
+table generator, the DHBC checkpoint converter and the microbenchmarks
+included). Nor does
 importing them import matplotlib, which that machine lacks."""
 
 import subprocess
@@ -21,11 +23,13 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax",
                                     "dynamicfusion_body_tpu", "bench",
                                     "suite", "benchmarks"))
-assert len(mods) >= 80, mods
+assert len(mods) >= 88, mods
 new = {"benchmarks.bench512_sharded", "native", "utils.visualize",
        "tools._frames", "tools.profile_solve5", "tools.exp_freeze",
        "tools.exp_solver", "tools.profile_frame5", "tools.sweep_solver5",
-       "tools.sweep_frame5"}
+       "tools.sweep_frame5", "tools.make_ablation", "tools.gen_mc_tables",
+       "tools.convert_tf_dhbc", "tools.profile_mc2", "tools.profile_prims",
+       "tools.profile_prims2", "tools.profile_solver", "tools.exp_asm"}
 missing = {m for m in new if pkg.__name__ + "." + m not in mods}
 assert not missing, missing
 assert "matplotlib" not in sys.modules  # imported lazily, on a call
