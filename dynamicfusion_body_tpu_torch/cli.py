@@ -5,7 +5,9 @@
                 maps with proj*.txt extrinsics into a canonical TSDF; write
                 the world-space mesh.
   sequence    ← TEST_FUSION: the non-rigid loop over a directory of
-                *.dist volumes with per-frame phase profiles.
+                *.dist volumes; writes the per-phase profile (profile.json)
+                and the program's spans (spans.json: count, total, self
+                and mean time per span path) beside the mesh.
   dummy       ← TEST_FUSION_DUMMY: synthetic ellipsoid smoke frame.
   backproject ← TEST_CUSTOM: dump depth-map backprojections as point files.
   selftest    ← TEST_UTIL: DQ/trilerp numeric checks, asserted.
@@ -69,7 +71,7 @@ def cmd_fusion_dm(args):
 def cmd_sequence(args):
     from .io.sdf_io import load_sdf
     from .pipeline.fusion import Fusion
-    from .utils.profiling import PhaseTimer
+    from .utils.profiling import RECORDER, PhaseTimer, tracing
 
     files = sorted(
         f for f in os.listdir(args.data) if f.endswith(args.suffix)
@@ -88,32 +90,35 @@ def cmd_sequence(args):
     )
     fus.write_canonical_mesh(args.out_dir, "original.obj")
     timer = PhaseTimer()
+    RECORDER.reset()
     # like the reference harness, a failed or interrupted frame stops the
     # loop but still writes the accumulated mesh (test.py:133-138); the
     # exit code then says that the sequence did not finish
     rc = 0
-    for i, fname in enumerate(files[1 : args.max_frames + 1], start=1):
-        try:
-            _, _, vol, _ = load_sdf(os.path.join(args.data, fname))
-            print(f"Processing iteration: {i} ({fname})")
-            with timer.phase("setupCorrespondences"):
-                fus.setupCorrespondences(vol, method=args.method)
-            with timer.phase("solve", sync=fus._warp.node_dq):
-                fus.solve(regularization_weight=args.reg_weight,
-                          method=args.method)
-            with timer.phase("updateTSDF", sync=fus.volume.values):
-                fus.updateTSDF()
-            with timer.phase("update_graph"):
-                fus.update_graph()
-        except ValueError as e:
-            print(str(e), file=sys.stderr)
-            rc = 1
-            break
-        except KeyboardInterrupt:
-            rc = 130
-            break
+    with tracing():
+        for i, fname in enumerate(files[1 : args.max_frames + 1], start=1):
+            try:
+                _, _, vol, _ = load_sdf(os.path.join(args.data, fname))
+                print(f"Processing iteration: {i} ({fname})")
+                with timer.phase("setupCorrespondences"):
+                    fus.setupCorrespondences(vol, method=args.method)
+                with timer.phase("solve", sync=fus._warp.node_dq):
+                    fus.solve(regularization_weight=args.reg_weight,
+                              method=args.method)
+                with timer.phase("updateTSDF", sync=fus.volume.values):
+                    fus.updateTSDF()
+                with timer.phase("update_graph"):
+                    fus.update_graph()
+            except ValueError as e:
+                print(str(e), file=sys.stderr)
+                rc = 1
+                break
+            except KeyboardInterrupt:
+                rc = 130
+                break
     fus.write_canonical_mesh(args.out_dir, args.out)
     timer.dump(os.path.join(args.out_dir, "profile.json"))
+    RECORDER.dump_spans(os.path.join(args.out_dir, "spans.json"))
     print(timer.report())
     return rc
 
@@ -212,7 +217,9 @@ def main(argv=None):
     dm.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     dm.set_defaults(fn=cmd_fusion_dm)
 
-    sq = sub.add_parser("sequence", help="non-rigid .dist sequence loop")
+    sq = sub.add_parser(
+        "sequence", help="non-rigid .dist sequence loop; writes profile.json "
+        "(per phase) and spans.json (per program span) to --out-dir")
     sq.add_argument("--data", required=True)
     sq.add_argument("--suffix", default="64.dist")
     sq.add_argument("--max-frames", type=int, default=10)

@@ -41,6 +41,7 @@ from ..ops.trilerp_cuda import (
     warp_trilerp_bricks_cached,
     warp_voxels,
 )
+from ..utils.profiling import host_read
 
 INIT_NODE_DQ = (1.0, 0.0, 0.0, 0.0, 0.0, 0.01, 0.01, 0.0)  # core/fusion.py:115
 _BIG = 3.4e38
@@ -425,14 +426,17 @@ def update_graph(wf: WarpField, verts, valid_verts, k: int):
     unsupported = valid_verts & (torch.amin(ratio, dim=1) >= 1.0)
 
     ucap = min(4 * capacity, verts.shape[0])
-    src_all = torch.nonzero(unsupported).flatten()
+    with host_read():
+        src_all = torch.nonzero(unsupported).flatten()
     n_over = max(src_all.numel() - ucap, 0)
     src = src_all[:ucap]
     new_idx_c, new_count = radius_subsample(verts[src], wf.radius, capacity)
-    new_count = int(new_count)
-    base = int(wf.num_active)
+    with host_read(2):
+        new_count = int(new_count)
+        base = int(wf.num_active)
     take = min(new_count, capacity - base)
-    n_dropped = torch.tensor((new_count - take) + n_over, device=dev)
+    with host_read():
+        n_dropped = torch.tensor((new_count - take) + n_over, device=dev)
     if take == 0:
         return wf, n_dropped
 

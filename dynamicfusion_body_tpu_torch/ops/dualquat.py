@@ -18,6 +18,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import host_read
+
 IDENTITY_DQ = (1.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0)
 
 # Smallest normal float32. Far from every node the blend weights are tiny
@@ -62,7 +64,8 @@ def dq_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def dq_full_conjugate(dq: torch.Tensor) -> torch.Tensor:
     """Negate components 1..4 (reference core/util.py:299-304)."""
-    sign = dq.new_tensor([1.0, -1, -1, -1, -1, 1, 1, 1])
+    with host_read():  # a blocking copy from host memory
+        sign = dq.new_tensor([1.0, -1, -1, -1, -1, 1, 1, 1])
     return dq * sign
 
 
@@ -92,7 +95,8 @@ def dq_normalize8(dq: torch.Tensor) -> torch.Tensor:
     norm = torch.linalg.vector_norm(dq, dim=-1, keepdim=True)
     ok = norm * norm >= NORM2_MIN
     out = dq / torch.where(ok, norm, torch.ones_like(norm))
-    ident = dq.new_tensor(IDENTITY_DQ).expand(dq.shape)
+    with host_read():  # a blocking copy from host memory
+        ident = dq.new_tensor(IDENTITY_DQ).expand(dq.shape)
     return torch.where(ok, out, ident)
 
 

@@ -27,6 +27,7 @@ import functools
 
 import torch
 
+from ..utils.profiling import host_read, span, traced
 from . import mc_tables
 from .mc_cuda import mc_case_cross, mc_case_cross_ref
 
@@ -52,6 +53,7 @@ def _pad_to(x, cap):
     return out
 
 
+@traced("marching_cubes")
 def marching_cubes(
     vol: torch.Tensor,
     level: float = 0.0,
@@ -94,43 +96,59 @@ def marching_cubes(
     ``x_index_offset`` is added to each vertex's integer x index before
     the interpolation fraction, so that slabs give the whole volume's
     coordinates bit for bit.
+
+    Spans: ``case_cross`` (K1), ``vertices``, ``faces``, ``normals`` and
+    ``pack`` (the masking and padding over the caps, and the counts).
     """
     if step_size > 1:
         vol = vol[::step_size, ::step_size, ::step_size]
     dev = vol.device
-    fused = (mc_case_cross if use_kernels else mc_case_cross_ref)(vol, level)
-    fused = fused.reshape(-1)
-    if cell_x_lo is not None:
-        fused = _own_slab(fused, vol.shape[0], cell_x_lo, cell_x_hi)
-    edges, elin, lin1, et, verts = mc_vertices(vol, fused, level, vert_cap,
-                                               x_index_offset)
+    with span("case_cross"):
+        fused = (mc_case_cross if use_kernels else mc_case_cross_ref)(
+            vol, level)
+        fused = fused.reshape(-1)
+        if cell_x_lo is not None:
+            fused = _own_slab(fused, vol.shape[0], cell_x_lo, cell_x_hi)
+    with span("vertices"):
+        edges, elin, lin1, et, verts = mc_vertices(vol, fused, level,
+                                                   vert_cap, x_index_offset)
     n_verts = edges.numel()
     vmask = torch.arange(vert_cap, device=dev) < n_verts
-    faces, n_faces = mc_faces(fused, edges, vol.shape, face_cap, vert_cap)
+    with span("faces"):
+        faces, n_faces = mc_faces(fused, edges, vol.shape, face_cap,
+                                  vert_cap)
     nf = min(n_faces, face_cap)
-    if with_normals:
-        normals = mc_normals(vol, elin, lin1, et)
-    else:
-        normals = torch.zeros((vert_cap, 3), dtype=torch.float32, device=dev)
+    with span("normals"):
+        if with_normals:
+            normals = mc_normals(vol, elin, lin1, et)
+        else:
+            normals = torch.zeros((vert_cap, 3), dtype=torch.float32,
+                                  device=dev)
 
-    if step_size > 1:
-        verts = verts * step_size
-    verts = torch.where(vmask[:, None], verts, 0.0)
-    normals = torch.where(vmask[:, None], normals, 0.0)
-    values = torch.where(vmask, torch.full_like(et, float(level)), 0.0)
-    ev = _pad_to(edges, vert_cap)
-    nyz = vol.shape[1] * vol.shape[2]
-    edge_axis = torch.where(vmask, ev // (vol.shape[0] * nyz), 0)
-    edge_x = torch.where(vmask, elin // nyz + x_index_offset, 0)
+    with span("pack"):
+        if step_size > 1:
+            verts = verts * step_size
+        verts = torch.where(vmask[:, None], verts, 0.0)
+        normals = torch.where(vmask[:, None], normals, 0.0)
+        values = torch.where(vmask, torch.full_like(et, float(level)), 0.0)
+        ev = _pad_to(edges, vert_cap)
+        nyz = vol.shape[1] * vol.shape[2]
+        edge_axis = torch.where(vmask, ev // (vol.shape[0] * nyz), 0)
+        edge_x = torch.where(vmask, elin // nyz + x_index_offset, 0)
+        # the counts are copied from host memory: each copy waits
+        counts = []
+        for c in (min(n_verts, vert_cap), nf,
+                  n_verts > vert_cap or n_faces > face_cap):
+            with host_read():
+                counts.append(torch.tensor(c, device=dev))
     return {
         "verts": verts,
         "normals": normals,
         "values": values,
         "faces": faces,
-        "n_verts": torch.tensor(min(n_verts, vert_cap), device=dev),
-        "n_faces": torch.tensor(nf, device=dev),
-        "overflow": torch.tensor(n_verts > vert_cap or n_faces > face_cap,
-                                 device=dev),
+        "n_verts": counts[0],
+        "n_faces": counts[1],
+        "overflow": counts[2],
         "edge_axis": edge_axis,
         "edge_x": edge_x,
     }
@@ -150,7 +168,8 @@ def crossing_edges(fused):
     """The sorted ids of the crossing lattice edges of the K1 words
     ``fused`` (flat): ``nonzero`` of the x, y and z flag planes in turn."""
     flat_mask = torch.cat([((fused >> (8 + a)) & 1).bool() for a in range(3)])
-    return torch.nonzero(flat_mask).flatten()
+    with host_read():
+        return torch.nonzero(flat_mask).flatten()
 
 
 def mc_vertices(vol, fused, level: float, vert_cap: int,
@@ -198,14 +217,20 @@ def mc_faces(fused, edges, shape, face_cap: int, vert_cap: int):
     tri_table, tri_count, edge_off = _tables(dev)
     case = fused & 255
     ntris = tri_count[case]
-    cells = torch.nonzero(ntris).flatten()
+    with host_read():
+        cells = torch.nonzero(ntris).flatten()
     counts = ntris[cells]
-    n_faces = int(counts.sum())
+    with host_read():
+        n_faces = int(counts.sum())
     nf = min(n_faces, face_cap)
-    cell_of_face = torch.repeat_interleave(cells, counts)[:nf]
+    # without an output size, repeat_interleave reads its size and checks
+    # the repeats' sign on the host: two waits
+    with host_read(2):
+        cell_of_face = torch.repeat_interleave(cells, counts)[:nf]
     starts = torch.cumsum(counts, 0) - counts
-    slot = (torch.arange(nf, device=dev)
-            - torch.repeat_interleave(starts, counts)[:nf])
+    first = torch.arange(nf, device=dev)
+    with host_read(2):
+        slot = first - torch.repeat_interleave(starts, counts)[:nf]
     ci = cell_of_face // (Y * Z)
     cj = (cell_of_face // Z) % Y
     ck = cell_of_face % Z

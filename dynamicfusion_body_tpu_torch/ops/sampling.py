@@ -19,6 +19,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import host_read
+
 
 def radius_subsample(points, radius, capacity: int, valid=None):
     """Greedy radius subsample with fixed output capacity.
@@ -32,8 +34,11 @@ def radius_subsample(points, radius, capacity: int, valid=None):
     # invalid points start committed and unselected, so they neither
     # suppress nor block anyone: the loop runs over the valid ones only
     # (in index order), and the picks map back through ``keep``
-    keep = (torch.arange(points.shape[0], device=dev) if valid is None
-            else torch.nonzero(valid).flatten())
+    if valid is None:
+        keep = torch.arange(points.shape[0], device=dev)
+    else:
+        with host_read():
+            keep = torch.nonzero(valid).flatten()
     n = keep.numel()
     if n == 0:
         return out, torch.zeros((), dtype=torch.long, device=dev)
@@ -47,7 +52,11 @@ def radius_subsample(points, radius, capacity: int, valid=None):
     committed = torch.zeros(n, dtype=torch.bool, device=dev)
     selected = torch.zeros(n, dtype=torch.bool, device=dev)
     rounds = 0
-    while rounds < n and not bool(torch.all(committed)):
+    while rounds < n:
+        with host_read():  # one read a round
+            done = bool(torch.all(committed))
+        if done:
+            break
         conflict = torch.empty_like(selected)
         blocked = torch.empty_like(selected)
         for c0 in range(0, n, chunk):
@@ -64,9 +73,12 @@ def radius_subsample(points, radius, capacity: int, valid=None):
         committed = committed | new_sel | new_rej
         rounds += 1
 
-    chosen = keep[torch.nonzero(selected).flatten()[:capacity]]
+    with host_read():
+        chosen = keep[torch.nonzero(selected).flatten()[:capacity]]
     out[: chosen.numel()] = chosen
-    return out, torch.tensor(chosen.numel(), device=dev)
+    with host_read():
+        count = torch.tensor(chosen.numel(), device=dev)
+    return out, count
 
 
 def furthest_point_sample(points, n_samples: int, start_idx: int = 0):

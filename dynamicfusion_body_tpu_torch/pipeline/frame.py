@@ -30,6 +30,7 @@ from ..solvers.nonrigid import (
     relaxation_step,
 )
 from ..solvers.rigid import solve_rigid
+from ..utils.profiling import host_read, span, traced
 from .correspondence import (
     closest_point_correspondences,
     closest_point_correspondences_grid,
@@ -119,6 +120,7 @@ def stack_rounds(xs, dev):
     return torch.stack(xs) if xs else torch.zeros((0,), device=dev)
 
 
+@traced("fusion_frame")
 def fusion_frame(
     values, weights, live, wf: WF.WarpField, lw_dq, regularization_weight,
     knn_k: int = 4, tdist: float = 0.2, wmax: float = 100.0,
@@ -150,7 +152,12 @@ def fusion_frame(
     search on a round whose certificate fails for more than
     CORR_REFRESH_FRAC of the mesh (at least 8 vertices); else a fresh
     search every round. ``approx_knn`` (False, True or ``"2level"``)
-    picks the search (``pipeline/correspondence.py``)."""
+    picks the search (``pipeline/correspondence.py``).
+
+    Spans: ``marching_cubes``, ``correspondences``, ``rigid``, ``solve``
+    (``solvers/nonrigid.py:gn_solve_core``), ``tsdf_update`` and
+    ``graph_update``, with a ``host_read`` at each value the host waits
+    for."""
     live_vert_cap = vert_cap if live_vert_cap is None else live_vert_cap
     live_face_cap = face_cap if live_face_cap is None else live_face_cap
     n_vox = 1
@@ -201,15 +208,17 @@ def fusion_frame(
         # one candidate search per frame at the frame-entry warp; later
         # rounds re-rank it (the reference re-queries its KDTree every
         # round, core/fusion.py:371 → 251-276)
-        wv0, _ = WF.warp_points(wf, verts, nbr_idx, normals=normals,
-                                m_lw=lw_dq)
-        cand_idx, d_kc, cand_risk = correspondence_candidates(
-            wv0, vmask, lverts, lmask, kc=max(4 * knn_k, 16),
-            approx=approx_knn)
-        n_valid0 = torch.sum(vmask)
-        risk_cap = torch.clamp_min(
-            (CORR_REFRESH_FRAC * n_valid0.float()).long(), 8)
+        with span("correspondences"):
+            wv0, _ = WF.warp_points(wf, verts, nbr_idx, normals=normals,
+                                    m_lw=lw_dq)
+            cand_idx, d_kc, cand_risk = correspondence_candidates(
+                wv0, vmask, lverts, lmask, kc=max(4 * knn_k, 16),
+                approx=approx_knn)
+            n_valid0 = torch.sum(vmask)
+            risk_cap = torch.clamp_min(
+                (CORR_REFRESH_FRAC * n_valid0.float()).long(), 8)
 
+    @traced("correspondences")
     def correspondences(wf_, lw_):
         """(corr, valid, uncertified vertices, refreshed) of one round."""
         wv, wn = WF.warp_points(wf_, verts, nbr_idx, normals=normals,
@@ -221,7 +230,9 @@ def fusion_frame(
                 tolerance)
             # certificate-steered refresh: one host read a round (the JAX
             # package's lax.cond); the fresh search runs only on such rounds
-            if not bool(risk > risk_cap):
+            with host_read():
+                stale = bool(risk > risk_cap)
+            if not stale:
                 return c, v, risk, zero_i
             refresh = torch.ones_like(zero_i)
         c, v, _ = fresh(wv, wn)
@@ -250,9 +261,11 @@ def fusion_frame(
             f"gn_iters/cg_iters schedules must have length solve_iters="
             f"{solve_iters}, got {gn_sched}/{cg_sched}")
     node_dq = wf.node_dq
-    rw = torch.as_tensor(regularization_weight, dtype=torch.float32,
-                         device=dev)
-    dmp = torch.tensor(1e-4, device=dev)
+    with host_read():
+        rw = torch.as_tensor(regularization_weight, dtype=torch.float32,
+                             device=dev)
+    with host_read():
+        dmp = torch.tensor(1e-4, device=dev)
     act = True
     zero = torch.zeros((), device=dev)
     cbs, cbhs, cas, ellovs = [], [], [], []
@@ -280,35 +293,45 @@ def fusion_frame(
         cas.append(ca)
         ellovs.append(ellov)
         relax, rw = relaxation_step(cb, ca, rw)
-        act = bool(relax)
+        with host_read():
+            act = bool(relax)
     wf = wf.replace(node_dq=node_dq)
 
     # non-rigid canonical fusion (153-198): the candidate and warp caches
     # depend only on the node set, so the previous frame's are exact
-    if canon_mesh is not None and "brick_cand" in canon_mesh:
-        cand_cache = (canon_mesh["brick_cand"], canon_mesh["brick_risk"])
-        warp_cache = (canon_mesh["warp_sel"], canon_mesh["warp_selw"],
-                      canon_mesh["warp_wi"])
-    else:
-        cand_cache, warp_cache = _build_caches(
-            wf, values.shape, brick, n_candidates, knn_k, exact_candidates)
-    values, weights, esc_dropped, pool_risk = WF.update_tsdf_nonrigid(
-        values, weights, live, wf, lw_dq, k=knn_k, tdist=tdist, wmax=wmax,
-        brick=brick, n_candidates=n_candidates, use_kernels=use_kernels,
-        cand_cache=cand_cache, warp_cache=warp_cache)
+    with span("tsdf_update"):
+        if canon_mesh is not None and "brick_cand" in canon_mesh:
+            cand_cache = (canon_mesh["brick_cand"],
+                          canon_mesh["brick_risk"])
+            warp_cache = (canon_mesh["warp_sel"], canon_mesh["warp_selw"],
+                          canon_mesh["warp_wi"])
+        else:
+            cand_cache, warp_cache = _build_caches(
+                wf, values.shape, brick, n_candidates, knn_k,
+                exact_candidates)
+        values, weights, esc_dropped, pool_risk = WF.update_tsdf_nonrigid(
+            values, weights, live, wf, lw_dq, k=knn_k, tdist=tdist,
+            wmax=wmax, brick=brick, n_candidates=n_candidates,
+            use_kernels=use_kernels, cand_cache=cand_cache,
+            warp_cache=warp_cache)
 
     # deformation-graph maintenance (201-239)
     n_dropped = torch.zeros((), dtype=torch.long, device=dev)
     mesh_out = mesh
     if update_graph:
-        mesh_out, vmask2 = _canonical_mesh(values, vert_cap, face_cap,
-                                           mc_step, use_kernels)
-        n_act0 = int(wf.num_active)
-        wf, n_dropped = WF.update_graph(wf, mesh_out["verts"], vmask2, knn_k)
-        if int(wf.num_active) > n_act0:  # the node set changed
-            cand_cache, warp_cache = _build_caches(
-                wf, values.shape, brick, n_candidates, knn_k,
-                exact_candidates)
+        with span("graph_update"):
+            mesh_out, vmask2 = _canonical_mesh(values, vert_cap, face_cap,
+                                               mc_step, use_kernels)
+            with host_read():
+                n_act0 = int(wf.num_active)
+            wf, n_dropped = WF.update_graph(wf, mesh_out["verts"], vmask2,
+                                            knn_k)
+            with host_read():
+                grown = int(wf.num_active) > n_act0
+            if grown:  # the node set changed
+                cand_cache, warp_cache = _build_caches(
+                    wf, values.shape, brick, n_candidates, knn_k,
+                    exact_candidates)
     mesh_out = dict(
         mesh_out, brick_cand=cand_cache[0], brick_risk=cand_cache[1],
         warp_sel=warp_cache[0], warp_selw=warp_cache[1],

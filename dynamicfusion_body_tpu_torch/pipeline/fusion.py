@@ -43,6 +43,7 @@ from ..ops.se3 import dq_to_se3
 from ..solvers import nonrigid as _nonrigid
 from ..solvers.nonrigid import gn_solve_core, make_reg_pairs, relaxation_step
 from ..solvers.rigid import solve_rigid
+from ..utils.profiling import host_read, span, traced
 from .correspondence import closest_point_correspondences, prune_by_plane_cost
 from .frame import _build_caches
 
@@ -62,10 +63,17 @@ def resolve_device(device) -> torch.device:
 
 
 def _as_tensor(a, device):
-    """A float32 tensor on ``device`` from an array or tensor."""
+    """A float32 tensor on ``device`` from an array or tensor; an array, or
+    a host tensor bound for the card, is a host read (the copy waits for
+    the card's queue; an array counts on the CPU too)."""
     if isinstance(a, torch.Tensor):
-        return a.to(device=device, dtype=torch.float32)
-    return torch.as_tensor(np.asarray(a, dtype=np.float32), device=device)
+        if a.device.type == "cuda" or a.device == torch.device(device):
+            return a.to(device=device, dtype=torch.float32)
+        with host_read():
+            return a.to(device=device, dtype=torch.float32)
+    with host_read():
+        return torch.as_tensor(np.asarray(a, dtype=np.float32),
+                               device=device)
 
 
 def _pad_to_multiple(vol, mult, fill):
@@ -82,7 +90,9 @@ def _pad_to_multiple(vol, mult, fill):
 def _warn_mesh_overflow(mesh, vert_cap, face_cap):
     """Capacity saturation is loud: a truncated isosurface silently corrupts
     correspondences and exported meshes downstream."""
-    if bool(mesh["overflow"]):
+    with host_read():
+        overflow = bool(mesh["overflow"])
+    if overflow:
         warnings.warn(
             f"marching_cubes capacity overflow (vert_cap={vert_cap}, "
             f"face_cap={face_cap}): surface truncated — grow the caps",
@@ -141,10 +151,12 @@ class FusionDM:
         """Fuse the (n,H,W) depth maps ``maps`` on this FusionDM's device
         (taken with extrinsics ``lws``) into (v, w) in one K5 pass, in
         order."""
-        projs = np.stack([self._proj(lw) for lw in lws])
-        return fuse_depth_multi(
-            v, w, maps, self._tensor(projs), self._tensor(self._Kinv[2]),
-            self._tdist, wmax)
+        with span("calibrate"):
+            projs = self._tensor(np.stack([self._proj(lw) for lw in lws]))
+            kinv_row2 = self._tensor(self._Kinv[2])
+        with span("fuse"):
+            return fuse_depth_multi(v, w, maps, projs, kinv_row2,
+                                    self._tdist, wmax)
 
     @property
     def _tsdf(self):
@@ -156,7 +168,8 @@ class FusionDM:
 
     @property
     def _IND(self):
-        return self.volume.ind.cpu().numpy()
+        with host_read():
+            return self.volume.ind.cpu().numpy()
 
     def _proj(self, lw):
         """K·lw·IND in numpy float32, exactly as the JAX FusionDM builds it,
@@ -166,6 +179,7 @@ class FusionDM:
         return self._K @ lw4[:3] @ self._IND
 
     # ------------------------------------------------------------------ #
+    @traced("compute_live_tsdf")
     def compute_live_tsdf(
         self, depths, lws, UseAutoAlignment=False, useICP=False,
         outputMesh=False, as_numpy=True,
@@ -176,19 +190,26 @@ class FusionDM:
         statistics (or the hardcoded defaults), then either straight
         accumulation or per-map rigid-ICP alignment. Returns numpy arrays
         (values, weights), or the device tensors with ``as_numpy=False``.
+
+        Spans: ``upload`` (the maps' copy to the device), ``calibrate``
+        (the grid calibration, the volume, the per-view projections with
+        their reads of the grid matrix) and ``fuse`` (K5).
         """
         if len(depths) != len(lws):
             raise ValueError(
                 "length of camera matrix array Ks must equal that of depth maps"
             )
-        maps = self._stack(depths)  # one host-to-card copy of the maps
-        avg = self._tensor([-0.03, -0.43, -5.6])
-        std = self._tensor(1.3)
-        if UseAutoAlignment:
-            avg, std = estimate_alignment(
-                maps, self._tensor(self._Kinv), self._stack(lws))
-        ind = make_ind_matrix(self._tsdf_res, avg, std, factor=8.0)
-        self.volume = TsdfVolume.create(self._tsdf_res, self._tdist, ind=ind)
+        with span("upload"):
+            maps = self._stack(depths)  # one host-to-card copy of the maps
+        with span("calibrate"):
+            avg = self._tensor([-0.03, -0.43, -5.6])
+            std = self._tensor(1.3)
+            if UseAutoAlignment:
+                avg, std = estimate_alignment(
+                    maps, self._tensor(self._Kinv), self._stack(lws))
+            ind = make_ind_matrix(self._tsdf_res, avg, std, factor=8.0)
+            self.volume = TsdfVolume.create(self._tsdf_res, self._tdist,
+                                            ind=ind)
         if self._verbose:
             print("estimate center pt of input depth maps:", avg.cpu().numpy())
             print("estimate std of input depth maps:", float(std))
@@ -215,11 +236,14 @@ class FusionDM:
             self.volume = self.volume.replace(values=v, weights=w)
 
         if outputMesh:
-            np.save("tsdf_temp", self.volume.values.cpu().numpy())
+            with host_read():
+                values = self.volume.values.cpu().numpy()
+            np.save("tsdf_temp", values)
             self.write_canonical_mesh(os.getcwd(), "test.obj")
         if as_numpy:
-            return (self.volume.values.cpu().numpy(),
-                    self.volume.weights.cpu().numpy())
+            with host_read(2):
+                return (self.volume.values.cpu().numpy(),
+                        self.volume.weights.cpu().numpy())
         return self.volume.values, self.volume.weights
 
     def fuseDepths(self, dm, lw, tsdf, tsdf_w, wmax=WMAX):
@@ -227,9 +251,11 @@ class FusionDM:
         Returns numpy (values, weights)."""
         v, w = self._fuse(self._tensor(tsdf), self._tensor(tsdf_w),
                           self._tensor(dm)[None], [lw], wmax)
-        return v.cpu().numpy(), w.cpu().numpy()
+        with host_read(2):
+            return v.cpu().numpy(), w.cpu().numpy()
 
     # ------------------------------------------------------------------ #
+    @traced("marching_cubes")
     def marching_cubes(self, tsdf=None, step_size=1, with_normals=True):
         """Extract a surface; with no args, caches the canonical mesh like
         the reference (core/fusion_dm.py:319-331)."""
@@ -439,6 +465,7 @@ class Fusion:
                                       0.0)
 
     # ------------------------------------------------------------------ #
+    @traced("marching_cubes")
     def marching_cubes(self, tsdf=None, step_size=0, with_normals=True):
         """Extract a surface through K1; with no ``tsdf``, the canonical
         mesh (solver-sized caps), cached; else the live caps."""
@@ -465,6 +492,7 @@ class Fusion:
         return WF.warp_points(self._warp, m["verts"], self._nbr_idx,
                               normals=m["normals"], m_lw=m_lw)
 
+    @traced("correspondences")
     def setupCorrespondences(self, curr_tsdf, method="cnn",
                              prune_result=True, tolerance=0.2,
                              live_mc_step=1):
@@ -509,6 +537,7 @@ class Fusion:
         return corr, valid
 
     # ------------------------------------------------------------------ #
+    @traced("solve")
     def solve(
         self,
         correspondences=None,
@@ -569,9 +598,11 @@ class Fusion:
                     tolerance=self._corr_tolerance,
                     live_mc_step=self._corr_live_mc_step)
             wf = self._warp
+            with host_read():
+                rw_t = torch.tensor(rw, dtype=torch.float32,
+                                    device=self.device)
             pair_i, pair_j, pair_scale, pair_mask = make_reg_pairs(
-                wf.node_vert_idx, self._nbr_idx, wf.node_w, wf.active,
-                torch.tensor(rw, dtype=torch.float32, device=self.device))
+                wf.node_vert_idx, self._nbr_idx, wf.node_w, wf.active, rw_t)
             data_args = (m["verts"], m["normals"], self._correspondences,
                          self._corr_valid, self._nbr_idx, self._blend_wts)
             reg_args = (pair_i, pair_j, wf.node_pos[pair_j], pair_scale,
@@ -579,21 +610,24 @@ class Fusion:
             new_dq, cost_before, _, cost_after, _, ell_over = gn_solve_core(
                 wf.node_dq, data_args, reg_args, self._lw, gn_iters,
                 cg_iters, damping=1e-4, ftol=1e-5)
-            if int(ell_over) > 0:
+            with host_read():
+                ell_over = int(ell_over)
+            if ell_over > 0:
                 warnings.warn(
                     "solve: %d JtWJ contributions exceeded the block-ELL "
                     "degree cap (ELL_DEGREE_CAP=%d) and were dropped — the "
                     "CG operator is under-assembled and convergence may "
                     "stall; raise solvers.nonrigid.ELL_DEGREE_CAP for this "
-                    "graph density" % (int(ell_over),
-                                       _nonrigid.ELL_DEGREE_CAP),
+                    "graph density" % (ell_over, _nonrigid.ELL_DEGREE_CAP),
                     RuntimeWarning, stacklevel=2)
-            cost_before = float(cost_before)
+            with host_read():
+                cost_before = float(cost_before)
             if self._verbose:
                 print("Cost before optimization:", cost_before)
                 print("Current regularization weight:", rw)
             self._warp = wf.replace(node_dq=new_dq)
-            cost_after = float(cost_after)
+            with host_read():
+                cost_after = float(cost_after)
             if self._verbose:
                 print("Optimized cost at %d iteration: %f"
                       % (self._itercounter, cost_after))
@@ -606,6 +640,7 @@ class Fusion:
                       (cost_before - cost_after) / max(cost_before, 1e-30))
 
     # ------------------------------------------------------------------ #
+    @traced("tsdf_update")
     def updateTSDF(self, curr_tsdf=None, wmax=100.0):
         """Non-rigid canonical fusion (reference core/fusion.py:153-198).
 
@@ -637,13 +672,15 @@ class Fusion:
             tdist=self._tdist, wmax=wmax, brick=brick, n_candidates=C,
             use_kernels=self.device.type == "cuda",
             cand_cache=(cand, pool_risk0), warp_cache=wc)
-        if int(esc_dropped) > 0:
+        with host_read(2):
+            esc_dropped, pool_risk = int(esc_dropped), int(pool_risk)
+        if esc_dropped > 0:
             warnings.warn(
-                f"updateTSDF: {int(esc_dropped)} in-volume samples exceeded "
+                f"updateTSDF: {esc_dropped} in-volume samples exceeded "
                 "the re-sample capacity and were skipped")
-        if int(pool_risk) > 0:
+        if pool_risk > 0:
             warnings.warn(
-                f"updateTSDF: {int(pool_risk)} node-influenced voxels "
+                f"updateTSDF: {pool_risk} node-influenced voxels "
                 "could not certify the 2-level node-candidate pool covers "
                 "their exact kNN (clustered/irregular node distribution); "
                 "fusion blend weights may drift from the flat search there")
@@ -652,17 +689,21 @@ class Fusion:
                                           weights=w[:sx, :sy, :sz])
 
     # ------------------------------------------------------------------ #
+    @traced("graph_update")
     def update_graph(self):
         """Graph maintenance after fusion (reference core/fusion.py:201-239)."""
         self.marching_cubes()
         m = self._mesh
-        n_before = int(self._warp.num_active)
+        with host_read():
+            n_before = int(self._warp.num_active)
         self._warp, n_dropped = WF.update_graph(
             self._warp, m["verts"], self._vmask(m, self._vert_cap), self._knn)
         self._upd_cache = None  # node set changed: kNN caches invalid
-        if int(n_dropped) > 0:
+        with host_read():
+            n_dropped = int(n_dropped)
+        if n_dropped > 0:
             warnings.warn(
-                f"deformation-node pool saturated: {int(n_dropped)} new "
+                f"deformation-node pool saturated: {n_dropped} new "
                 f"nodes dropped (node_cap={self._warp.capacity}); grow "
                 "node_cap", RuntimeWarning)
         self._refresh_neighbors()

@@ -40,6 +40,7 @@ from torch.func import jacfwd, vmap
 
 from ..ops.dualquat import dq_normalize8, dq_transform_normal, dq_transform_point
 from ..ops.losses import huber_irls_weight
+from ..utils.profiling import host_read, span, traced
 
 # LM retries per GN round: base damping 1e-4 escalates through 1e-3 … 1e-1.
 MAX_LM_RETRIES = 4
@@ -172,22 +173,32 @@ def make_ell_dict(nbr_idx, corr_mask, pair_i, pair_j, pair_mask, M: int,
     still accepted on exact energies)."""
     big = M * M
     keys = _coupling_keys(nbr_idx, corr_mask, pair_i, pair_j, pair_mask, M)
-    uniq, counts = torch.unique(keys, return_counts=True)
-    counts = counts[uniq < big]
-    uniq = uniq[uniq < big]
+    # the sizes of unique's output, of each boolean index and of bincount's
+    # (its largest value) are read on the host
+    with host_read():
+        uniq, counts = torch.unique(keys, return_counts=True)
+    with host_read(2):
+        counts = counts[uniq < big]
+        uniq = uniq[uniq < big]
     node = uniq // M
-    per_node = torch.bincount(node, minlength=M)
+    with host_read(2):
+        per_node = torch.bincount(node, minlength=M)
     d_slot = (torch.arange(uniq.numel(), device=uniq.device)
               - (torch.cumsum(per_node, 0) - per_node)[node])
     keep = d_slot < D
-    slot = node[keep] * D + d_slot[keep]
+    with host_read(2):
+        slot = node[keep] * D + d_slot[keep]
     slot_key = torch.full((M * D,), big, dtype=keys.dtype, device=keys.device)
-    slot_key[slot] = uniq[keep]
+    with host_read():
+        slot_key[slot] = uniq[keep]
     ell_nbr = torch.zeros_like(slot_key)
-    ell_nbr[slot] = uniq[keep] % M
+    with host_read():
+        ell_nbr[slot] = uniq[keep] % M
     self_slot = _lookup(slot_key, torch.arange(M, device=keys.device) * (M + 1))
+    with host_read():
+        n_overflow = torch.sum(counts[~keep])
     return EllDict(slot_key, ell_nbr, torch.clamp_min(self_slot, 0),
-                   self_slot >= 0, torch.sum(counts[~keep]))
+                   self_slot >= 0, n_overflow)
 
 
 def make_block_ell(nbr_idx, corr_mask, pair_i, pair_j, pair_mask, M: int,
@@ -200,7 +211,8 @@ def make_block_ell(nbr_idx, corr_mask, pair_i, pair_j, pair_mask, M: int,
     keys = _coupling_keys(nbr_idx, corr_mask, pair_i, pair_j, pair_mask, M)
     slot = _lookup(ell.slot_key, keys)
     slot = torch.where(keys < M * M, slot, -1)
-    rows = torch.nonzero(slot >= 0).flatten()
+    with host_read():
+        rows = torch.nonzero(slot >= 0).flatten()
     slots = slot[rows]
 
     def reduce_ell(contrib):
@@ -351,6 +363,7 @@ def pcg_solve(Bl, blk, ell_nbr, rhs, lam, cg_iters: int):
     return sol
 
 
+@traced("solve")
 def gn_solve_core(node_dq, data_args, reg_args, lw_dq, gn_iters: int,
                   cg_iters: int, damping: float, ftol: float, psum=_ident,
                   damping_init=None, solver_ctx: SolverCtx | None = None):
@@ -372,7 +385,13 @@ def gn_solve_core(node_dq, data_args, reg_args, lw_dq, gn_iters: int,
 
     Returns (node_dq, cost0_raw, cost0, cost1, dmp_out, ell_overflow):
     raw and huberized initial cost, final huberized cost, final LM
-    damping, and the JᵀWJ contributions the degree cap dropped."""
+    damping, and the JᵀWJ contributions the degree cap dropped.
+
+    Spans: ``solve``, one ``gn_step`` per GN step with ``jacobians``
+    (residuals, Jacobians, weights, gradient), ``assemble`` (the JᵀWJ
+    blocks, when rebuilt), ``pcg`` and ``lm_try`` (the energy at the
+    step and its acceptance) per LM try, and a ``host_read`` at each
+    predicate."""
     corr_mask, nbr_idx = data_args[3], data_args[4]
     pair_i, pair_j, _, _, pair_mask = reg_args
     M = node_dq.shape[0]
@@ -391,32 +410,36 @@ def gn_solve_core(node_dq, data_args, reg_args, lw_dq, gn_iters: int,
                                             lw_dq), psum)
 
     def run_step(x, e, dmp, Bl, blk, e_asm):
-        r_d, J_d = _data_jacobians(x, data_args, lw_dq)
-        r_d = torch.where(corr_mask, r_d, 0.0)
-        J_d = torch.where(corr_mask[:, None, None], J_d, 0.0)
-        w_d = huber_irls_weight(r_d) * corr_mask
-        r_r, J_ri, J_rj = _reg_jacobians(x, reg_args)
-        pm = pair_mask[:, None]
-        r_r = torch.where(pm, r_r, 0.0)
-        J_ri = torch.where(pm[..., None], J_ri, 0.0)
-        J_rj = torch.where(pm[..., None], J_rj, 0.0)
-        w_r = huber_irls_weight(r_r) * pm                      # (P, 3)
+        with span("jacobians"):
+            r_d, J_d = _data_jacobians(x, data_args, lw_dq)
+            r_d = torch.where(corr_mask, r_d, 0.0)
+            J_d = torch.where(corr_mask[:, None, None], J_d, 0.0)
+            w_d = huber_irls_weight(r_d) * corr_mask
+            r_r, J_ri, J_rj = _reg_jacobians(x, reg_args)
+            pm = pair_mask[:, None]
+            r_r = torch.where(pm, r_r, 0.0)
+            J_ri = torch.where(pm[..., None], J_ri, 0.0)
+            J_rj = torch.where(pm[..., None], J_rj, 0.0)
+            w_r = huber_irls_weight(r_r) * pm                  # (P, 3)
 
-        g = torch.zeros((M, 8), dtype=f32, device=dev)
-        g.index_add_(0, nbr_idx.reshape(-1),
-                     (J_d * (w_d * r_d)[:, None, None]).reshape(-1, 8))
-        g = psum(g)
-        wrr = w_r * r_r
-        g.index_add_(0, pair_i, torch.einsum("pc,pce->pe", wrr, J_ri))
-        g.index_add_(0, pair_j, torch.einsum("pc,pce->pe", wrr, J_rj))
-        rhs = -g
+            g = torch.zeros((M, 8), dtype=f32, device=dev)
+            g.index_add_(0, nbr_idx.reshape(-1),
+                         (J_d * (w_d * r_d)[:, None, None]).reshape(-1, 8))
+            g = psum(g)
+            wrr = w_r * r_r
+            g.index_add_(0, pair_i, torch.einsum("pc,pce->pe", wrr, J_ri))
+            g.index_add_(0, pair_j, torch.einsum("pc,pce->pe", wrr, J_rj))
+            rhs = -g
 
-        fresh = bool(e < (1.0 - FREEZE_FRAC) * e_asm)
+        with host_read():
+            fresh = bool(e < (1.0 - FREEZE_FRAC) * e_asm)
         if fresh:
-            blocks = reduce_ell(jtwj_contributions(J_d, w_d, J_ri, J_rj,
-                                                   w_r))       # (M·DC, 64)
-            Bl = blocks.reshape(M, DC, 8, 8)
-            blk = (blocks[self_ids] * self_present[:, None]).reshape(M, 8, 8)
+            with span("assemble"):
+                blocks = reduce_ell(jtwj_contributions(
+                    J_d, w_d, J_ri, J_rj, w_r))                # (M·DC, 64)
+                Bl = blocks.reshape(M, DC, 8, 8)
+                blk = (blocks[self_ids]
+                       * self_present[:, None]).reshape(M, 8, 8)
             e_asm = e
         diag_mean = (torch.sum(torch.diagonal(blk, dim1=1, dim2=2))
                      / (8.0 * M) + 1e-12)
@@ -426,15 +449,21 @@ def gn_solve_core(node_dq, data_args, reg_args, lw_dq, gn_iters: int,
 
         # LM trust loop on the blocks just built (or frozen)
         x_b, e_b = x, e
-        e_last = torch.tensor(torch.inf, device=dev)
+        with host_read():
+            e_last = torch.tensor(torch.inf, device=dev)
         accepted = False
         for _ in range(MAX_LM_RETRIES):
-            flat = bool((e_last - e) <= (FLAT_FACTOR * ftol) * e)
+            with host_read():
+                flat = bool((e_last - e) <= (FLAT_FACTOR * ftol) * e)
             if accepted or flat:
                 break
-            x_new = x + cg_solve(dmp * diag_mean)
-            e_new = energy(x_new)
-            accepted = bool(e_new <= e)
+            with span("pcg"):
+                step = cg_solve(dmp * diag_mean)
+            with span("lm_try"):
+                x_new = x + step
+                e_new = energy(x_new)
+                with host_read():
+                    accepted = bool(e_new <= e)
             if accepted:
                 x_b, e_b = x_new, e_new
                 dmp = torch.clamp_min(dmp / 3.0, damping)
@@ -445,20 +474,29 @@ def gn_solve_core(node_dq, data_args, reg_args, lw_dq, gn_iters: int,
 
     x = node_dq
     e = cost0
-    dmp = torch.as_tensor(damping if damping_init is None else damping_init,
-                          dtype=f32, device=dev)
+    dmp0 = damping if damping_init is None else damping_init
+    if isinstance(dmp0, torch.Tensor) and dmp0.device == dev:
+        dmp = dmp0.to(f32)
+    else:
+        with host_read():
+            dmp = torch.as_tensor(dmp0, dtype=f32, device=dev)
     Bl = torch.zeros((M, DC, 8, 8), dtype=f32, device=dev)
     blk = torch.zeros((M, 8, 8), dtype=f32, device=dev)
-    e_asm = torch.tensor(torch.inf, device=dev)
+    with host_read():
+        e_asm = torch.tensor(torch.inf, device=dev)
     for _ in range(gn_iters):
-        x2, e2, dmp2, Bl, blk, e_asm2, fresh = run_step(x, e, dmp, Bl, blk,
-                                                        e_asm)
-        reduced = bool((e - e2) > ftol * e)
+        with span("gn_step"):
+            x2, e2, dmp2, Bl, blk, e_asm2, fresh = run_step(x, e, dmp, Bl,
+                                                            blk, e_asm)
+            with host_read():
+                reduced = bool((e - e2) > ftol * e)
         if not reduced and fresh:
             x, e, dmp, e_asm = x2, e2, dmp2, e_asm2
             break
         if not reduced:  # failed on frozen blocks: rebuild, keep damping
-            x, e, e_asm = x2, e2, torch.tensor(torch.inf, device=dev)
+            with host_read():
+                e_asm = torch.tensor(torch.inf, device=dev)
+            x, e = x2, e2
         else:
             x, e, dmp, e_asm = x2, e2, dmp2, e_asm2
     return x, cost0_raw, cost0, e, dmp, ell_overflow

@@ -14,6 +14,7 @@ import torch
 from torch.func import jacfwd
 
 from ..ops.dualquat import dq_transform_normal, dq_transform_point
+from ..utils.profiling import host_read, traced
 
 
 def p2s_residuals(lw_dq, pts, normals, corrs, mask):
@@ -49,13 +50,15 @@ def solve_rigid_core(lw_dq, pts, normals, corrs, mask, iterations: int = 10,
         JtJ = reduce(J.T @ J)
         Jtr = reduce(J.T @ r)
         A = JtJ + damping * eye * (torch.trace(JtJ) / 8.0 + 1e-12)
-        x_new = x + torch.linalg.solve(A, -Jtr)
+        with host_read():  # the solve reads its error code on the host
+            x_new = x + torch.linalg.solve(A, -Jtr)
         better = (reduce(torch.sum(resid(x_new) ** 2))
                   <= reduce(torch.sum(r ** 2)))
         x = torch.where(better, x_new, x)
     return x, 0.5 * reduce(torch.sum(resid(x) ** 2))
 
 
+@traced("rigid")
 def solve_rigid(lw_dq, pts, normals, corrs, mask, iterations: int = 10,
                 damping: float = 1e-6):
     """The single-device entry: :func:`solve_rigid_core` with the identity

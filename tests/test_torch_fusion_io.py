@@ -144,3 +144,17 @@ def test_cli_sequence_failed_frame_exits_nonzero(tmp_path, monkeypatch):
     assert open(out / "mesh.obj").read().count("\nf ") > 10
     assert set(json.load(open(out / "profile.json"))) == {
         "setupCorrespondences"}
+
+
+def test_cli_sequence_writes_spans(tmp_path):
+    """``sequence`` traces its frames: spans.json holds the solver's
+    spans under ``solve`` and the host reads, by path."""
+    argv = write_dist_frames(tmp_path)
+    out = tmp_path / "out"
+    assert cli.main(argv) == 0
+    spans = json.load(open(out / "spans.json"))
+    assert spans["solve/gn_step/pcg"]["count"] >= 1
+    assert any(p.endswith("host_read") for p in spans)
+    for s in spans.values():
+        assert set(s) == {"total_s", "count", "mean_s", "self_s"}
+        assert 0 <= s["self_s"] <= s["total_s"] + 1e-6

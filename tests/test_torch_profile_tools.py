@@ -1,7 +1,7 @@
 """The port's profiling entry points (dynamicfusion_body_tpu_torch/tools)
 at 32³ on the CPU, where the kernels' plain twins run: each tool returns
 its named rows with finite host times, and ``device_trace`` writes a
-trace and returns the profiler's averages, and a row's trace counts as
+trace holding the block's operations, and a row's trace counts as
 whole only when nothing it launched is missing from it."""
 
 import importlib.util
@@ -79,12 +79,13 @@ def test_trilerp_bounds_count_this_run():
 
 def test_device_trace_on_cpu(tmp_path):
     with device_trace(str(tmp_path / "t")) as tr:
-        assert tr.averages is None
+        assert tr.path is None
         torch.randn(64, 64) @ torch.randn(64, 64)
     assert os.path.getsize(tr.path) > 0
     assert tr.path.startswith(str(tmp_path))
-    keys = {e.key for e in tr.averages}
-    assert any("mm" in k for k in keys), keys
+    with open(tr.path) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert any("mm" in str(k) for k in names), names
 
 
 def _fake_trace(tmp_path, events):
