@@ -29,9 +29,9 @@ _MESH_DTYPES = {
     "verts": torch.float32,
     "normals": torch.float32,
     "values": torch.float32,
-    "faces": torch.int64,
-    "n_verts": torch.int64,
-    "n_faces": torch.int64,
+    "faces": torch.int32,
+    "n_verts": torch.int32,
+    "n_faces": torch.int32,
     "overflow": torch.bool,
     "brick_cand": torch.int64,
     "brick_risk": torch.int64,

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
 from ..utils.profiling import host_read, span, traced
@@ -32,17 +33,41 @@ from . import mc_tables
 from .mc_cuda import mc_case_cross, mc_case_cross_ref
 
 
+INT32_MAX = 2**31 - 1
+
+
+def index_dtype(n: int) -> torch.dtype:
+    """int32 where every index below ``n`` fits (n <= 2^31 - 1), else
+    int64."""
+    return torch.int32 if n <= INT32_MAX else torch.int64
+
+
+def index_widths(shape, vert_cap: int, face_cap: int):
+    """(the width of the faces stage's cells and edge ids on an (X,Y,Z)
+    lattice, the width of the faces, face positions and counts): a pure
+    function of the shape and the caps."""
+    X, Y, Z = shape
+    return index_dtype(3 * X * Y * Z), index_dtype(max(vert_cap, face_cap))
+
+
 @functools.cache
 def _tables(device: torch.device):
-    """(TRI_TABLE (256,15), TRI_COUNT (256,), edge offsets (12,4) =
-    base-corner dx, dy, dz and axis) as int64 tensors on ``device``."""
-    tri = torch.as_tensor(mc_tables.TRI_TABLE.reshape(256, 15)).long()
-    cnt = torch.as_tensor(mc_tables.TRI_COUNT).long()
-    base = torch.as_tensor(mc_tables.EDGE_BASE).long()
-    off = torch.stack(
-        [base & 1, (base >> 1) & 1, (base >> 2) & 1,
-         torch.as_tensor(mc_tables.EDGE_AXIS).long()], dim=1)
-    return tri.to(device), cnt.to(device), off.to(device)
+    """(TRI_TABLE flat (256·15,), TRI_COUNT (256,)) as int32 tensors on
+    ``device``."""
+    tri = torch.as_tensor(mc_tables.TRI_TABLE.reshape(-1))
+    return tri.to(device), torch.as_tensor(mc_tables.TRI_COUNT).to(device)
+
+
+@functools.cache
+def _edge_delta(device: torch.device, shape, dtype):
+    """(12,) ``dtype`` on ``device``: each cube edge's id less its cell's
+    flat index on an (X,Y,Z) lattice, axis·XYZ + dx·YZ + dy·Z + dz of the
+    edge's base corner."""
+    X, Y, Z = shape
+    base = mc_tables.EDGE_BASE.astype(np.int64)
+    delta = (mc_tables.EDGE_AXIS.astype(np.int64) * (X * Y * Z)
+             + (base & 1) * (Y * Z) + ((base >> 1) & 1) * Z + ((base >> 2) & 1))
+    return torch.as_tensor(delta).to(device=device, dtype=dtype)
 
 
 def _pad_to(x, cap):
@@ -73,8 +98,9 @@ def marching_cubes(
       normals (vert_cap, 3) f32 normalized -gradient (zeros when
               ``with_normals=False``)
       values  (vert_cap,)  f32 ``level`` at valid slots
-      faces   (face_cap, 3) int64 vertex indices
-      n_verts, n_faces  0-d int64, saturated at capacity
+      faces   (face_cap, 3) int32 vertex indices (int64 only when a cap
+              is 2^31 or more), as the JAX contract
+      n_verts, n_faces  0-d, faces' dtype, saturated at capacity
       overflow          0-d bool: the surface exceeded vert_cap or
                         face_cap (faces touching a dropped vertex are
                         zeroed)
@@ -137,10 +163,11 @@ def marching_cubes(
         edge_x = torch.where(vmask, elin // nyz + x_index_offset, 0)
         # the counts are copied from host memory: each copy waits
         counts = []
-        for c in (min(n_verts, vert_cap), nf,
-                  n_verts > vert_cap or n_faces > face_cap):
+        for c, dt in ((min(n_verts, vert_cap), faces.dtype),
+                      (nf, faces.dtype),
+                      (n_verts > vert_cap or n_faces > face_cap, torch.bool)):
             with host_read():
-                counts.append(torch.tensor(c, device=dev))
+                counts.append(torch.tensor(c, dtype=dt, device=dev))
     return {
         "verts": verts,
         "normals": normals,
@@ -206,20 +233,31 @@ def mc_vertices(vol, fused, level: float, vert_cap: int,
     return edges, elin, lin1, et, verts
 
 
+def emitting_cells(case, dtype):
+    """(the cells whose ``case`` emits triangles, as ``dtype``; their
+    int32 triangle counts, ``TRI_COUNT[case]``)."""
+    ntris = _tables(case.device)[1].index_select(0, case)
+    with host_read():
+        cells = torch.nonzero(ntris).flatten().to(dtype)
+    return cells, ntris.index_select(0, cells)
+
+
 def mc_faces(fused, edges, shape, face_cap: int, vert_cap: int):
     """The face stage: ``TRI_COUNT[case]`` triangles per cell in ascending
     cell id; a corner's vertex is its edge's rank among ``edges``. Faces
     touching a vertex beyond ``vert_cap`` are zeroed. Returns (faces
-    (face_cap, 3) int64, the uncapped face count)."""
-    X, Y, Z = shape
-    nxyz = X * Y * Z
+    (face_cap, 3) int32, or int64 when a cap is 2^31 or more, the
+    uncapped face count).
+
+    A corner's edge id is its cell's flat index plus the edge's delta
+    (``_edge_delta``). The widths are ``index_widths``'s: int32 on every
+    lattice of the repo, 512³ included (3·X·Y·Z <= 2^31 - 1). Each corner
+    reads its one ``TRI_TABLE`` entry, at case·15 + slot·3 + corner."""
     dev = fused.device
-    tri_table, tri_count, edge_off = _tables(dev)
+    ew, fw = index_widths(shape, vert_cap, face_cap)
+    tri_flat = _tables(dev)[0]
     case = fused & 255
-    ntris = tri_count[case]
-    with host_read():
-        cells = torch.nonzero(ntris).flatten()
-    counts = ntris[cells]
+    cells, counts = emitting_cells(case, ew)
     with host_read():
         n_faces = int(counts.sum())
     nf = min(n_faces, face_cap)
@@ -227,24 +265,21 @@ def mc_faces(fused, edges, shape, face_cap: int, vert_cap: int):
     # the repeats' sign on the host: two waits
     with host_read(2):
         cell_of_face = torch.repeat_interleave(cells, counts)[:nf]
-    starts = torch.cumsum(counts, 0) - counts
-    first = torch.arange(nf, device=dev)
+    # a cell's first face, exact below face_cap (the only ones kept)
+    starts = torch.clamp_max(torch.cumsum(counts, 0) - counts,
+                             face_cap).to(fw)
+    first = torch.arange(nf, dtype=fw, device=dev)
     with host_read(2):
         slot = first - torch.repeat_interleave(starts, counts)[:nf]
-    ci = cell_of_face // (Y * Z)
-    cj = (cell_of_face // Z) % Y
-    ck = cell_of_face % Z
-    row15 = tri_table[case[cell_of_face]]
-    cols = []
-    for c in range(3):
-        el = torch.gather(row15, 1, (slot * 3 + c)[:, None])[:, 0]
-        off = edge_off[el]
-        eid = (off[:, 3] * nxyz
-               + ((ci + off[:, 0]) * Y + cj + off[:, 1]) * Z + ck + off[:, 2])
-        cols.append(torch.searchsorted(edges, eid))
-    faces = torch.stack(cols, dim=-1)
-    face_ok = torch.all(faces < vert_cap, dim=-1)
-    return _pad_to(torch.where(face_ok[:, None], faces, 0), face_cap), n_faces
+    row = case.index_select(0, cell_of_face) * 15 + slot * 3
+    corner = torch.arange(3, dtype=row.dtype, device=dev)
+    el = tri_flat.index_select(0, (row[:, None] + corner).reshape(-1))
+    eid = (cell_of_face[:, None]
+           + _edge_delta(dev, tuple(shape), ew).index_select(0, el)
+           .reshape(nf, 3))
+    faces = torch.searchsorted(edges.to(ew), eid, out_int32=ew == torch.int32)
+    face_ok = torch.all(faces < vert_cap, dim=-1, keepdim=True)
+    return _pad_to(torch.where(face_ok, faces, 0).to(fw), face_cap), n_faces
 
 
 def mc_normals(vol, elin, lin1, et):

@@ -57,7 +57,7 @@ from ..solvers.nonrigid import (
     relaxation_step,
 )
 from ..solvers.rigid import solve_rigid_core
-from .mc_sharded import mc_local_slab
+from .mc_sharded import global_count, global_faces, mc_local_slab
 from .mesh import Mesh
 from .sharded import global_ell_dict, update_local_with_caches
 
@@ -70,13 +70,12 @@ def _make_extract_canon(mesh: Mesh, vert_cap, face_cap, mc_step):
         m = mc_local_slab(values, mesh, vert_cap=vert_cap, face_cap=face_cap,
                           step_size=mc_step, with_normals=True)
         dev = values.device
-        fvalid = torch.arange(face_cap, device=dev) < m["n_faces"]
-        faces = torch.where(fvalid[:, None],
-                            m["faces"] + mesh.rank * vert_cap, 0)
+        faces, _ = global_faces(m["faces"], m["n_faces"], mesh.rank,
+                                mesh.world, vert_cap)
         vvalid = torch.arange(vert_cap, device=dev) < m["n_verts"]
         return (m["verts"], m["normals"], faces, vvalid, m["vert_owned"],
                 mesh.psum(torch.sum(m["vert_owned"])),
-                mesh.psum(m["n_faces"]),
+                global_count(mesh, m["n_faces"], vert_cap, face_cap),
                 mesh.psum(m["overflow"].long()) > 0)
 
     return extract_canon

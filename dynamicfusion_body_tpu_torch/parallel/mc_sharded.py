@@ -29,8 +29,24 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.marching_cubes import marching_cubes
+from ..ops.marching_cubes import index_dtype, marching_cubes
 from .mesh import Mesh
+
+
+def global_faces(faces, n_faces, rank: int, world: int, vert_cap: int):
+    """This rank's block of the global faces: ``faces`` (its local
+    indices) plus rank·vert_cap, zero at slots >= ``n_faces``. int32
+    while world·vert_cap < 2^31, else int64. Returns (faces, their
+    validity)."""
+    fvalid = torch.arange(faces.shape[0], device=faces.device) < n_faces
+    g = faces.to(index_dtype(world * vert_cap)) + rank * vert_cap
+    return torch.where(fvalid[:, None], g, 0), fvalid
+
+
+def global_count(mesh: Mesh, n, vert_cap: int, face_cap: int):
+    """The count ``n`` summed over the ranks, in the global width: int32
+    while world·max(vert_cap, face_cap) < 2^31, else int64."""
+    return mesh.psum(n.to(index_dtype(mesh.world * max(vert_cap, face_cap))))
 
 
 def mc_local_slab(vol_local, mesh: Mesh, *, level: float = 0.0,
@@ -112,7 +128,7 @@ def marching_cubes_sharded(mesh: Mesh, *, level: float = 0.0,
 
       verts, normals (vert_cap, 3)  global lattice coordinates
       faces      (face_cap, 3)      GLOBAL vertex indices (rank·vert_cap +
-                                    local index)
+                                    local index; ``global_faces``)
       vert_valid, face_valid        validity of this block's slots
       vert_owned                    vert_valid minus the seam copies
       n_verts, n_faces, n_owned     summed over the ranks (n_verts counts
@@ -127,15 +143,14 @@ def marching_cubes_sharded(mesh: Mesh, *, level: float = 0.0,
                           with_normals=with_normals)
         dev = vol_local.device
         vvalid = torch.arange(vert_cap, device=dev) < m["n_verts"]
-        fvalid = torch.arange(face_cap, device=dev) < m["n_faces"]
-        faces = torch.where(fvalid[:, None],
-                            m["faces"] + mesh.rank * vert_cap, 0)
+        faces, fvalid = global_faces(m["faces"], m["n_faces"], mesh.rank,
+                                     mesh.world, vert_cap)
         return {
             "verts": m["verts"], "normals": m["normals"], "faces": faces,
             "vert_valid": vvalid, "face_valid": fvalid,
             "vert_owned": m["vert_owned"],
-            "n_verts": mesh.psum(m["n_verts"]),
-            "n_faces": mesh.psum(m["n_faces"]),
+            "n_verts": global_count(mesh, m["n_verts"], vert_cap, face_cap),
+            "n_faces": global_count(mesh, m["n_faces"], vert_cap, face_cap),
             "n_owned": mesh.psum(torch.sum(m["vert_owned"])),
             "overflow": mesh.psum(m["overflow"].long()) > 0,
         }

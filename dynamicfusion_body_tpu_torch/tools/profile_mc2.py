@@ -40,20 +40,14 @@ from __future__ import annotations
 import torch
 
 from ..ops.marching_cubes import (
-    _tables, crossing_edges, marching_cubes, mc_faces, mc_vertices)
+    crossing_edges, emitting_cells, index_widths, marching_cubes, mc_faces,
+    mc_vertices)
 from ..ops.mc_cuda import mc_case_cross
 from ..pipeline.fusion import resolve_device
 from ._scene import bumpy, cap
 from ._timing import Timer, bound, device_label, parse_args
 
 LEVEL = 0.0
-
-
-def emitting_cells(fused):
-    """(the cells that emit triangles, their triangle counts)."""
-    ntris = _tables(fused.device)[1][fused & 255]
-    cells = torch.nonzero(ntris).flatten()
-    return cells, ntris[cells]
 
 
 def upto(stage: str, vol, vert_cap: int, face_cap: int):
@@ -70,7 +64,8 @@ def upto(stage: str, vol, vert_cap: int, face_cap: int):
     if stage == "verts":
         return verts
     if stage == "ntris":
-        return verts, emitting_cells(fused)
+        return verts, emitting_cells(
+            fused & 255, index_widths(vol.shape, vert_cap, face_cap)[0])
     return verts, mc_faces(fused, edges, vol.shape, face_cap, vert_cap)
 
 
@@ -87,8 +82,9 @@ def main(argv=None) -> dict:
                        use_kernels=True)
     nv, nf = int(m["n_verts"]), int(m["n_faces"])
     n = vol.numel()
-    ncells = int(emitting_cells(mc_case_cross(vol, LEVEL).reshape(-1))[0]
-                 .numel())
+    ncells = int(emitting_cells(
+        mc_case_cross(vol, LEVEL).reshape(-1) & 255,
+        index_widths(vol.shape, vert_cap, face_cap)[0])[0].numel())
     t = Timer(dev, args.reps, args.trace)
     print(f"# profile_mc2: {args.res}^3, verts {nv} faces {nf} (live caps "
           f"{vert_cap}/{face_cap}) on {device_label(dev)}; reps "
@@ -98,8 +94,8 @@ def main(argv=None) -> dict:
     nbytes = dict(case_cross=8 * n)
     nbytes["edges"] = nbytes["case_cross"] + 4 * n + 8 * nv
     nbytes["verts"] = nbytes["edges"] + 8 * nv + 12 * vert_cap
-    nbytes["ntris"] = nbytes["verts"] + 4 * n + 16 * ncells
-    nbytes["faces"] = nbytes["ntris"] + 8 * 3 * nf + 24 * face_cap
+    nbytes["ntris"] = nbytes["verts"] + 4 * n + 8 * ncells
+    nbytes["faces"] = nbytes["ntris"] + 4 * 3 * nf + 12 * face_cap
     nbytes["normals"] = nbytes["faces"] + 4 * n + 3 * 8 * nv + 12 * vert_cap
     for st in STAGES:
         t(f"upto_{st}", lambda st=st: upto(st, vol, vert_cap, face_cap),

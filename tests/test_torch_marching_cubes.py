@@ -8,7 +8,9 @@ import torch
 
 from dynamicfusion_body_tpu.ops.marching_cubes import marching_cubes as j_mc
 from dynamicfusion_body_tpu.ops.mc_pallas import mc_case_cross as j_k1
-from dynamicfusion_body_tpu_torch.ops.marching_cubes import marching_cubes
+from dynamicfusion_body_tpu_torch.ops import marching_cubes as mc_mod
+from dynamicfusion_body_tpu_torch.ops.marching_cubes import (
+    index_widths, marching_cubes)
 from dynamicfusion_body_tpu_torch.ops.mc_cuda import (
     MAX_OFFSET, check_args, mc_case_cross, mc_case_cross_ref)
 
@@ -70,16 +72,53 @@ def test_marching_cubes_matches_jax(rng, case, use_kernels):
     vol = make(rng)
     want = j_mc(jnp.asarray(vol), **kw)
     got = marching_cubes(torch.from_numpy(vol), use_kernels=use_kernels, **kw)
-    # topology and counts: exact (same edge/cell numbering)
+    # topology and counts: exact (same edge/cell numbering and dtype)
     for key in ("faces", "n_verts", "n_faces", "overflow"):
         np.testing.assert_array_equal(got[key].numpy(), np.asarray(want[key]),
                                       err_msg=key)
+        assert got[key].numpy().dtype == np.asarray(want[key]).dtype, key
+    # the lattice-edge identity keeps the port's int64
+    for key in ("edge_axis", "edge_x"):
+        assert got[key].dtype == torch.int64, key
     # coordinates/normals: f32 rounding across frameworks
     for key in ("verts", "normals", "values"):
         np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]),
                                    atol=1e-5, err_msg=key)
     if case == "saturated":
         assert int(got["n_verts"]) == 64 and bool(got["overflow"])
+
+
+I32, I64 = torch.int32, torch.int64
+
+
+@pytest.mark.parametrize("shape,caps,widths", [
+    ((512,) * 3, (1 << 24, 1 << 25), (I32, I32)),  # the 512³ ingest
+    ((256,) * 3, (1 << 16, 1 << 17), (I32, I32)),
+    ((1024, 1024, 682), (1 << 24, 1 << 25), (I32, I32)),  # 3·XYZ < 2^31
+    ((1024, 1024, 683), (1 << 24, 1 << 25), (I64, I32)),
+    ((2048,) * 3, (1 << 24, 1 << 25), (I64, I32)),
+    ((64,) * 3, (1 << 12, 1 << 31), (I32, I64)),
+])
+def test_index_widths(shape, caps, widths):
+    """The faces stage's widths from the shape and caps alone: no volume
+    is allocated."""
+    assert index_widths(shape, *caps) == widths
+
+
+@pytest.mark.parametrize("widths", [(I64, I32), (I32, I64), (I64, I64)])
+def test_faces_stage_at_each_width(rng, monkeypatch, widths):
+    """The faces stage forced to each width the small lattices do not
+    take (they take int32 throughout): the same faces and counts as
+    JAX's, in the faces' width."""
+    monkeypatch.setattr(mc_mod, "index_widths", lambda *a: widths)
+    vol = rough_volume(rng)
+    kw = dict(vert_cap=1 << 13, face_cap=1 << 14)
+    want = j_mc(jnp.asarray(vol), **kw)
+    got = marching_cubes(torch.from_numpy(vol), **kw)
+    for key in ("faces", "n_verts", "n_faces"):
+        assert got[key].dtype == widths[1], key
+        np.testing.assert_array_equal(got[key].numpy(), np.asarray(want[key]),
+                                      err_msg=key)
 
 
 def test_k1_on_a_stride2_view_matches_pallas(rng):

@@ -23,6 +23,7 @@ from dynamicfusion_body_tpu.parallel.mesh import (
 from dynamicfusion_body_tpu_torch import convert
 from dynamicfusion_body_tpu_torch.ops.marching_cubes import marching_cubes
 from dynamicfusion_body_tpu_torch.parallel import launch, ranks
+from dynamicfusion_body_tpu_torch.parallel.mc_sharded import global_faces
 
 # One intra-op thread here and in every rank (see
 # tests/test_torch_marching_cubes.py)
@@ -60,6 +61,7 @@ def test_sharded_mc_matches_jax(mesh4, step):
                 "n_verts", "n_faces", "n_owned"):
         np.testing.assert_array_equal(sh[key], np.asarray(want[key]),
                                       err_msg=key)
+    assert sh["faces"].dtype == np.asarray(want["faces"]).dtype == np.int32
     np.testing.assert_allclose(sh["normals"], np.asarray(want["normals"]),
                                atol=1e-5)
 
@@ -85,6 +87,39 @@ def test_sharded_mc_matches_jax(mesh4, step):
     errs = np.array([np.abs(pos2n[tuple(p)] - n).max()
                      for p, n in zip(sv, sh["normals"][vvalid])])
     assert errs.max() < 1e-5
+
+
+@pytest.mark.parametrize("case", ["two_ranks", "promoted"])
+def test_sharded_global_faces_width(case):
+    """The global faces stay int32 while world·vert_cap < 2^31: on 2 gloo
+    ranks equal to JAX's on ``make_mesh(2)``; past that, int64 and
+    exact (on a few faces, nothing allocated at the caps)."""
+    if case == "promoted":
+        local = torch.tensor([[0, 1, 2], [3, 4, 5], [7, 7, 7]],
+                             dtype=torch.int32)
+        for world, vcap, dt in ((2, 1 << 29, torch.int32),
+                                (4, 1 << 29, torch.int64),
+                                (2, 1 << 30, torch.int64)):
+            g, valid = global_faces(local, torch.tensor(2, dtype=torch.int32),
+                                    world - 1, world, vcap)
+            assert g.dtype == dt
+            assert valid.tolist() == [True, True, False]
+            want = local.long() + (world - 1) * vcap
+            assert g[:2].tolist() == want[:2].tolist()
+            assert g[2].tolist() == [0, 0, 0]
+        return
+    vol = _bumpy(32, 9.0)
+    mesh2 = make_mesh(2)
+    want = j_mc_sharded(mesh2, vert_cap=CAPS[0], face_cap=CAPS[1])(
+        jax.device_put(jnp.asarray(vol), volume_sharding(mesh2)))
+    sh = launch.run(ranks.marching_cubes, 2, (vol, CAPS[0], CAPS[1], 1),
+                    backend="gloo")
+    for key in ("faces", "face_valid", "n_verts", "n_faces"):
+        np.testing.assert_array_equal(sh[key], np.asarray(want[key]),
+                                      err_msg=key)
+    assert sh["faces"].dtype == np.asarray(want["faces"]).dtype == np.int32
+    assert sh["n_faces"].dtype == np.int32
+    assert int(sh["n_faces"]) > 100
 
 
 def test_sharded_mc_replicated_volume(mesh4):
