@@ -75,7 +75,9 @@ Phases, each of which raises on failure (exit code 1):
      overflows its 2^17-vertex cap, so the share of the surface the scored
      vertices cover is printed beside the score);
   10. the ICP branch (useICP=True) at 256³ with the first 3 views: a
-     finite volume, correspondences, and the recovered pose;
+     finite volume, correspondences, the recovered pose, and K7's bin,
+     scatter and query launches once a search; K7 (knn_grid) on the last
+     view's meshes against its plain twin, 0 unequal slots, timed;
   11. benchmarks/suite.py config 7 at 256³ through the port's
      suite.run_config7 and Fusion: the reference mesh bent by 0.08, 0.16
      and 0.24 rad, per frame a live TSDF fused on the canonical lattice and
@@ -2139,6 +2141,15 @@ def phase_config6(torch, dev, verts, faces, maps, lws):
 
 
 def phase_icp(torch, dev, depths, lws):
+    """The ICP branch at RES³ on the first ICP_VIEWS views: a finite
+    volume, correspondences, the recovered pose, and K7's three launches
+    (bin, scatter, query) once a search, 3 searches a later view. One
+    search on the last view's meshes (view 0's canonical mesh at the
+    solved pose against the last live mesh) is held to K7's plain twin
+    (0 unequal slots) and timed. Returns (K7's table row, its query
+    launches on the branch)."""
+    from dynamicfusion_body_tpu_torch.ops import knn_grid_cuda as K7
+    from dynamicfusion_body_tpu_torch.ops.dualquat import dq_transform_point
     from dynamicfusion_body_tpu_torch.ops.fusion_cuda import fuse_depth_multi
     from dynamicfusion_body_tpu_torch.ops.mc_cuda import mc_case_cross
     from dynamicfusion_body_tpu_torch.ops.se3 import dq_to_se3
@@ -2147,8 +2158,18 @@ def phase_icp(torch, dev, depths, lws):
     maps = list(depths[:ICP_VIEWS].cpu().numpy())
     fus = FusionDM(TDIST6, K6, tsdf_res=RES, vert_cap=1 << 17,
                    face_cap=1 << 18)
-    fuse_depth_multi.launches = 0
-    mc_case_cross.launches = 0
+    lives = []
+    solve = fus.solve
+
+    def keep_live(curr_tsdf):  # the last view's live TSDF, for K7's check
+        lives[:] = [curr_tsdf]
+        return solve(curr_tsdf)
+
+    fus.solve = keep_live
+    kernels = (fuse_depth_multi, mc_case_cross, K7.grid_bin,
+               K7.grid_scatter, K7.knn_grid)
+    for kern in kernels:
+        kern.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     v, w = fus.compute_live_tsdf(maps, list(lws[:ICP_VIEWS]),
@@ -2156,10 +2177,18 @@ def phase_icp(torch, dev, depths, lws):
                                  as_numpy=False)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels}
     check(bool(torch.isfinite(v).all() and torch.isfinite(w).all()),
           "ICP: non-finite TSDF")
     n_corr = int(fus._corr_valid.sum())
     check(n_corr > 0, "ICP: no correspondences")
+    icp = fus.icp_settings()
+    searches = icp["rounds"] * (ICP_VIEWS - 1)
+    for name in ("grid_bin", "grid_scatter", "knn_grid"):
+        check(launches[name] == searches, f"ICP: K7 launches {launches}, "
+              f"{searches} searches")
+    check(len(fus.icp_poses) == ICP_VIEWS - 1,
+          f"ICP: {len(fus.icp_poses)} poses for {ICP_VIEWS - 1} views")
     M = dq_to_se3(fus._lw).cpu().numpy()
     cosang = (np.trace(M[:3, :3]) - 1) / 2
     ang = float(np.degrees(np.arccos(np.clip(cosang, -1, 1))))
@@ -2169,9 +2198,37 @@ def phase_icp(torch, dev, depths, lws):
           f"correspondences {n_corr}; pose DQ "
           f"{np.array2string(fus._lw.cpu().numpy(), precision=6)}, "
           f"|q_r|^2 {qr2:.4f}; deviation from identity {ang:.4f} deg, "
-          f"{trans:.4f} voxels; "
-          f"launches K5 {fuse_depth_multi.launches} K1 "
-          f"{mc_case_cross.launches}")
+          f"{trans:.4f} voxels; launches {launches}")
+
+    k = icp["k"]
+    live = fus.marching_cubes(lives[0], step_size=1, with_normals=False)
+    q = dq_transform_point(fus._lw, fus._mesh["verts"])
+    pts = live["verts"]
+    n_q, n_p = fus._mesh["n_verts"], live["n_verts"]
+    cell = K7.leaf_cell(RES)
+    levels = K7.grid_levels(RES, cell)
+    d, i = K7.knn_grid(q, pts, k, n_q, n_p, RES)
+    rd, ri = K7.knn_grid_ref(q, pts, k, n_q, n_p, levels, cell)
+    unequal = int(((i != ri) | (d != rd)).sum())
+    check(unequal == 0, f"K7: {unequal} slots differ from the twin")
+    err = float(torch.where(torch.isfinite(rd), (d - rd).abs(), 0.0).max())
+    rows_q, rows_p = min(int(n_q), q.shape[0]), min(int(n_p), pts.shape[0])
+    ms = cuda_ms(torch, lambda: K7.knn_grid(q, pts, k, n_q, n_p, RES))
+    plain = cuda_ms(torch, lambda: K7.knn_grid_ref(q, pts, k, n_q, n_p,
+                                                   levels, cell), reps=3)
+    # each valid query and point read once, each query's k slots (a f32
+    # distance, an int64 index) written once (h100bench/counts_icp.py)
+    row = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+               **bound(12 * rows_q + 12 * rows_p + 12 * k * rows_q, 0),
+               library_ms=None)
+    info = K7.kernel_info(k)
+    print(f"# K7 (knn_grid) at {RES}^3: {rows_q} queries against {rows_p} "
+          f"points, k = {k}, {levels} levels of {cell}-voxel cells: 0 "
+          f"unequal slots; kernel {ms:.4f} ms (with the grid build), twin "
+          f"{plain:.4f} ms; bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']}); registers {info['registers']}, local bytes "
+          f"{info['local_bytes']}, CTAs per SM {info['ctas_per_sm']}")
+    return row, launches["knn_grid"]
 
 
 def phase_config7(torch, dev, verts, faces):
@@ -2677,7 +2734,8 @@ def main() -> int:
     # correspondence modes, config 4, config 6, config 7, the profiling
     # tools, the benchmark entry points, the 512³ bench), each path's
     # counts set to 0 just before it; K4 (trilerp_bricks) and K6
-    # (trilerp_ablation) serve the tools only; the sharded frame runs no
+    # (trilerp_ablation) serve the tools only, K7 (knn_grid) the ICP
+    # branch (its launches there: the query's); the sharded frame runs no
     # kernel (as the JAX package's sharded path runs no Pallas kernel)
     meta = {
         "mc_case_cross": ("mc_case_cross.cu", f"{PKG}/ops/mc_pallas.py:98"),
@@ -2691,6 +2749,9 @@ def main() -> int:
                              f"{PKG}/ops/fusion_pallas.py:223"),
         "trilerp_ablation": ("trilerp_ablation.cu",
                              "tools/profile_trilerp.py:142"),
+        # K7 replaces no TPU kernel: the JAX package's ICP runs the flat
+        # search, ops/knn.py:knn
+        "knn_grid": ("knn_grid.cu", None),
     }
     total = dict.fromkeys(meta, 0)
     info = print_kernel_info(torch)
@@ -2776,7 +2837,7 @@ def main() -> int:
     k5_n, k1_n = phase_config6(torch, dev, verts, faces, maps, lws)
     total["fuse_depth_multi"] += k5_n
     total["mc_case_cross"] += k1_n
-    phase_icp(torch, dev, depths, lws)
+    rows["knn_grid"], total["knn_grid"] = phase_icp(torch, dev, depths, lws)
     stamp("K5, config 6, ICP branch")
     launches, c7_errs = phase_config7(torch, dev, verts, faces)
     for name, n in launches.items():

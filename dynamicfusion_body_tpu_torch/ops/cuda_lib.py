@@ -86,6 +86,17 @@ SIGNATURES = {
         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
         _F, _F, _P, _P, _P, _P,
     ),
+    # (points, n_points (int32 on the card), P, levels, 1/cell, counts,
+    #  codes, ranks, stream)
+    "dfb_knn_grid_bin": (_P, _P, _I, _I, _F, _P, _P, _P, _P),
+    # (points, n_points, P, offsets, codes, ranks, sorted float4, stream)
+    "dfb_knn_grid_scatter": (_P, _P, _I, _P, _P, _P, _P, _P),
+    # (queries, n_queries (int32 on the card), Q, sorted, offsets, levels,
+    #  cell, k, dists, idx, stream)
+    "dfb_knn_grid_query": (_P, _P, _I, _P, _P, _I, _F, _I, _P, _P, _P),
+    # (k, out[6]): registers, local bytes, threads, CTAs per SM, static
+    # shared bytes, 0
+    "dfb_knn_grid_query_info": (_I, _IP),
 }
 
 

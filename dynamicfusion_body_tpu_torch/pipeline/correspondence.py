@@ -9,7 +9,9 @@ reference's best_cost = 1 cap (falling back to the nearest candidate when
 none beats it), and accept when best_cost <= tolerance.
 
 Variants: the flat exact search, the bf16-keyed search (``approx=True``)
-and the two-level pools (``"2level"``); the grid-hash search
+and the two-level pools (``"2level"``); the exact lattice search (K7) over
+counted rows (:func:`closest_point_correspondences_lattice`, the rigid
+ICP's); the grid-hash search
 (:func:`closest_point_correspondences_grid`); one candidate search per
 frame re-ranked every solve round under a drift certificate
 (:func:`correspondence_candidates`,
@@ -24,6 +26,8 @@ import torch
 
 from ..ops.grid_knn import grid_knn
 from ..ops.knn import BIG, knn, knn_2level
+from ..ops.knn_grid_cuda import knn_grid
+from ..utils.profiling import span
 
 
 def _pick(warped_verts, warped_normals, cand, cand_ok):
@@ -61,6 +65,26 @@ def closest_point_correspondences(
     best_pt, best_cost = _pick(warped_verts, warped_normals, live_verts[idx],
                                cand_valid)
     valid = vert_mask & (best_cost <= tolerance) & cand_valid[:, 0]
+    return best_pt, valid, best_cost
+
+
+def closest_point_correspondences_lattice(
+    warped_verts, warped_normals, n_verts, live_verts, n_live, k: int,
+    tolerance: float, extent: float,
+):
+    """:func:`closest_point_correspondences` over the first ``n_verts``
+    warped vertices and the first ``n_live`` live ones (0-d counts on the
+    device, as the marching cubes return them), the search exact on the
+    lattice [0, extent)³ (K7, ``ops/knn_grid_cuda.py``; span ``knn``),
+    with no host read. Rows past ``n_verts`` come out invalid."""
+    with span("knn"):
+        d, idx = knn_grid(warped_verts, live_verts, k, n_verts, n_live,
+                          extent)
+    found = torch.isfinite(d)
+    best_pt, best_cost = _pick(warped_verts, warped_normals, live_verts[idx],
+                               found)
+    rows = torch.arange(warped_verts.shape[0], device=warped_verts.device)
+    valid = (rows < n_verts) & (best_cost <= tolerance) & found[:, 0]
     return best_pt, valid, best_cost
 
 

@@ -42,9 +42,13 @@ from ..ops.projection import estimate_alignment, make_ind_matrix
 from ..ops.se3 import dq_to_se3
 from ..solvers import nonrigid as _nonrigid
 from ..solvers.nonrigid import gn_solve_core, make_reg_pairs, relaxation_step
-from ..solvers.rigid import solve_rigid
+from ..solvers.rigid import solve_rigid, solve_rigid_rows
 from ..utils.profiling import host_read, span, traced
-from .correspondence import closest_point_correspondences, prune_by_plane_cost
+from .correspondence import (
+    closest_point_correspondences,
+    closest_point_correspondences_lattice,
+    prune_by_plane_cost,
+)
 from .frame import _build_caches
 
 IDENTITY_DQ = np.array([1, 0, 0, 0, 0, 0, 0, 0], dtype=np.float32)
@@ -102,7 +106,19 @@ def _warn_mesh_overflow(mesh, vert_cap, face_cap):
 
 class FusionDM:
     """Multi-view depth-map fusion (rigid), on ``device`` (default the
-    card)."""
+    card).
+
+    After a ``compute_live_tsdf(useICP=True)``, ``icp_poses`` holds the
+    solved pose of each view after the first, in order (8-vector DQ
+    tensors on the device); the reference keeps only the last, in
+    ``_lw``."""
+
+    # the rigid ICP of compute_live_tsdf(useICP=True) (reference
+    # core/fusion_dm.py:219-283): rounds of correspondence and GN, GN
+    # steps a round, the point-to-plane cost a correspondence may have
+    ICP_ROUNDS = 3
+    ICP_ITERS = 12
+    ICP_TOLERANCE = 1.0
 
     def __init__(
         self,
@@ -135,6 +151,8 @@ class FusionDM:
         self.volume = TsdfVolume.create(tsdf_res, self._tdist,
                                         device=self.device)
         self._mesh = None
+        self._mesh_rows = None
+        self.icp_poses = []
 
     def _tensor(self, a):
         """A float32 tensor on this FusionDM's device from an array or
@@ -193,7 +211,11 @@ class FusionDM:
 
         Spans: ``upload`` (the maps' copy to the device), ``calibrate``
         (the grid calibration, the volume, the per-view projections with
-        their reads of the grid matrix) and ``fuse`` (K5).
+        their reads of the grid matrix) and ``fuse`` (K5); with ``useICP``
+        the branch is ``icp``, which holds each view's ``calibrate`` and
+        ``fuse``, the canonical ``marching_cubes``, and per later view
+        ``correspondences`` (the live ``marching_cubes`` and ``knn``, K7)
+        and ``rigid`` three times, then ``update``.
         """
         if len(depths) != len(lws):
             raise ValueError(
@@ -214,19 +236,24 @@ class FusionDM:
             print("estimate center pt of input depth maps:", avg.cpu().numpy())
             print("estimate std of input depth maps:", float(std))
 
+        self.icp_poses = []
         if useICP:
-            for idx, (dm, lw) in enumerate(zip(maps, lws)):
-                if self._verbose:
-                    print("fusing depth map ", idx)
-                fresh = TsdfVolume.create(self._tsdf_res, self._tdist, ind=ind)
-                v, w = self._fuse(fresh.values, fresh.weights, dm[None], [lw])
-                if idx == 0:
-                    self.volume = self.volume.replace(values=v, weights=w)
-                    self.marching_cubes()
-                else:
-                    self._lw = self._tensor(IDENTITY_DQ)
-                    self.solve(v)
-                    self.updateTSDF(v)
+            with span("icp"):
+                for idx, (dm, lw) in enumerate(zip(maps, lws)):
+                    if self._verbose:
+                        print("fusing depth map ", idx)
+                    fresh = TsdfVolume.create(self._tsdf_res, self._tdist,
+                                              ind=ind)
+                    v, w = self._fuse(fresh.values, fresh.weights, dm[None],
+                                      [lw])
+                    if idx == 0:
+                        self.volume = self.volume.replace(values=v, weights=w)
+                        self.marching_cubes()
+                    else:
+                        self._lw = self._tensor(IDENTITY_DQ)
+                        self.icp_poses.append(self.solve(v))
+                        with span("update"):
+                            self.updateTSDF(v)
         else:
             if self._verbose:
                 for idx in range(len(depths)):
@@ -270,41 +297,62 @@ class FusionDM:
         _warn_mesh_overflow(out, self._vert_cap, self._face_cap)
         if tsdf is None:
             self._mesh = out
+            self._mesh_rows = None
             if self._verbose:
                 print("Marching Cubes result: number of extracted vertices "
                       "is %d" % int(out["n_verts"]))
             return None
         return out
 
+    def icp_settings(self) -> dict:
+        """The rigid ICP as ``solve`` runs it: k nearest live vertices, the
+        rounds, the GN steps a round and the correspondence tolerance."""
+        return dict(k=self._knn, rounds=self.ICP_ROUNDS,
+                    iters=self.ICP_ITERS, tolerance=self.ICP_TOLERANCE)
+
     # ------------------------------------------------------------------ #
-    def setupCorrespondences(self, curr_tsdf, prune_result=True, tolerance=1.0):
+    @traced("correspondences")
+    def setupCorrespondences(self, curr_tsdf, prune_result=True,
+                             tolerance=ICP_TOLERANCE):
         """Closest-point correspondences against the live TSDF surface
         (reference core/fusion_dm.py:219-244: canonical verts are warped by
-        the global DQ only)."""
+        the global DQ only). The search is exact over the valid rows of
+        both meshes (K7, ``pipeline/correspondence.py:
+        closest_point_correspondences_lattice``): no host read, and none
+        of the flat search's all-slots cost."""
         if self._mesh is None:
             self.marching_cubes()
         # live normals are unused (correspondences target positions only)
         live = self.marching_cubes(curr_tsdf, step_size=1, with_normals=False)
-        slots = torch.arange(self._vert_cap, device=self.device)
-        vmask = slots < self._mesh["n_verts"]
         wv = dq_transform_point(self._lw, self._mesh["verts"])
         wn = dq_transform_normal(self._lw, self._mesh["normals"])
-        lmask = slots < live["n_verts"]
-        corr, valid, _ = closest_point_correspondences(
-            wv, wn, vmask, live["verts"], lmask, self._knn, tolerance)
+        corr, valid, _ = closest_point_correspondences_lattice(
+            wv, wn, self._mesh["n_verts"], live["verts"], live["n_verts"],
+            self._knn, tolerance, extent=self._tsdf_res)
         self._correspondences = corr
         self._corr_valid = valid
         return corr, valid
 
     def solve(self, curr_tsdf):
-        """Rigid ICP: 3 outer iterations of correspondence + 8-dof DQ GN
-        (reference core/fusion_dm.py:264-283)."""
+        """Rigid ICP: ICP_ROUNDS outer iterations of correspondence +
+        8-dof DQ GN of ICP_ITERS steps (reference core/fusion_dm.py:
+        264-283), the GN over the canonical
+        mesh's valid rows in closed form (``solvers/rigid.py:
+        solve_rigid_rows``; their count is read on the host once a
+        mesh)."""
         self._itercounter += 1
-        for _ in range(3):
+        if self._mesh is None:
+            self.marching_cubes()
+        if self._mesh_rows is None:
+            with host_read():
+                self._mesh_rows = int(self._mesh["n_verts"])
+        n = self._mesh_rows
+        for _ in range(self.ICP_ROUNDS):
             self.setupCorrespondences(curr_tsdf)
-            self._lw, _ = solve_rigid(
-                self._lw, self._mesh["verts"], self._mesh["normals"],
-                self._correspondences, self._corr_valid, iterations=12)
+            self._lw, _ = solve_rigid_rows(
+                self._lw, self._mesh["verts"][:n], self._mesh["normals"][:n],
+                self._correspondences[:n], self._corr_valid[:n],
+                iterations=self.ICP_ITERS)
             if self._verbose:
                 print("global transformation found:",
                       dq_to_se3(self._lw).cpu().numpy())

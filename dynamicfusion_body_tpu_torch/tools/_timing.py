@@ -60,7 +60,7 @@ import time
 import numpy as np
 import torch
 
-from ..ops import fusion_cuda, mc_cuda, trilerp_cuda
+from ..ops import fusion_cuda, knn_grid_cuda, mc_cuda, trilerp_cuda
 from ..utils.profiling import device_trace
 
 # the card's peaks (H100 SXM data sheet, dense, at 700 W): HBM bytes/s and
@@ -169,6 +169,9 @@ PORT_KERNELS = {
     trilerp_cuda.trilerp_bricks: "trilerp_bricks_kernel",
     trilerp_cuda.trilerp_ablation: "trilerp_ablation_kernel",
     fusion_cuda.fuse_depth_multi: "fuse_depth_multi_kernel",
+    knn_grid_cuda.knn_grid: "knn_grid_query_kernel",
+    knn_grid_cuda.grid_bin: "knn_grid_bin_kernel",
+    knn_grid_cuda.grid_scatter: "knn_grid_scatter_kernel",
 }
 
 

@@ -29,7 +29,8 @@ new = {"benchmarks.bench512_sharded", "native", "utils.visualize",
        "tools.exp_solver", "tools.profile_frame5", "tools.sweep_solver5",
        "tools.sweep_frame5", "tools.make_ablation", "tools.gen_mc_tables",
        "tools.convert_tf_dhbc", "tools.profile_mc2", "tools.profile_prims",
-       "tools.profile_prims2", "tools.profile_solver", "tools.exp_asm"}
+       "tools.profile_prims2", "tools.profile_solver", "tools.exp_asm",
+       "ops.knn_grid_cuda", "tools.profile_knn_grid"}
 missing = {m for m in new if pkg.__name__ + "." + m not in mods}
 assert not missing, missing
 assert "matplotlib" not in sys.modules  # imported lazily, on a call

@@ -50,6 +50,50 @@ def test_rigid_matches_jax(rng):
     np.testing.assert_allclose(float(tc1), float(jc1), rtol=1e-3)
 
 
+
+@pytest.mark.parametrize("iterations", [1, 15])
+def test_rigid_rows_matches_jax(rng, iterations):
+    """The ICP ingest's GN (``solve_rigid_rows``: Σr², JᵀJ and Jᵀr from
+    the rows' moments) on the same problem: the JAX solve's pose, and in
+    float64 the sums of ``jacfwd`` through the sandwich to the last
+    bits."""
+    from torch.func import jacfwd
+
+    pts, normals = make_surface(rng)
+    M = np.eye(4)
+    M[:3, :3] = rot_z(0.3)
+    M[:3, 3] = [0.05, -0.02, 0.1]
+    corrs = (pts @ M[:3, :3].T + M[:3, 3]).astype(np.float32)
+    mask = np.ones(len(pts), bool)
+    mask[::7] = False
+    x0 = np.array([1.0, 0, 0, 0, 0, 0, 0, 0], np.float32)
+    args = (x0, pts, normals, corrs, mask)
+    jx, jc = JR.solve_rigid(*map(jnp.asarray, args), iterations=iterations)
+    tx, tc = TR.solve_rigid_rows(*map(T, args), iterations=iterations)
+    if iterations == 1:  # one linearization: f32 noise only
+        np.testing.assert_allclose(tx.numpy(), np.asarray(jx), atol=1e-5)
+        assert float(tc) == pytest.approx(float(jc), rel=1e-3)
+    else:  # converged to the exact pose, as test_rigid_matches_jax holds
+        assert float(tc) < 1e-7 and float(jc) < 1e-7
+        np.testing.assert_allclose(tx.numpy(), np.asarray(jx), atol=1e-3)
+        np.testing.assert_allclose(
+            np.asarray(J.dq_transform_point(jnp.asarray(tx.numpy()),
+                                            jnp.asarray(pts))), corrs,
+            atol=1e-3)
+    x = torch.tensor([0.95, 0.02, -0.1, 0.05, 0.3, 1.2, -0.7, 2.0],
+                     dtype=torch.float64)
+    p, n, c = (T(a).double() for a in (pts, normals, corrs))
+    m = T(mask)
+    Jw = jacfwd(lambda y: TR.p2s_residuals(y, p, n, c, m))(x)
+    r = TR.p2s_residuals(x, p, n, c, m)
+    S = TR.moments(p, n, c, m)
+    w, D = TR.weights(x)
+    torch.testing.assert_close(w @ S @ w, r @ r, rtol=1e-12, atol=0)
+    torch.testing.assert_close(D.T @ S @ D, Jw.T @ Jw, rtol=1e-12,
+                               atol=1e-12)
+    torch.testing.assert_close(D.T @ S @ w, Jw.T @ r, rtol=1e-12,
+                               atol=1e-12)
+
 def _problem(rng, motion):
     k = 3
     verts, normals, wf, nbr, wts = _build_nonrigid_problem(rng)
