@@ -75,9 +75,16 @@ Phases, each of which raises on failure (exit code 1):
      overflows its 2^17-vertex cap, so the share of the surface the scored
      vertices cover is printed beside the score);
   10. the ICP branch (useICP=True) at 256³ with the first 3 views: a
-     finite volume, correspondences, the recovered pose, and K7's bin,
-     scatter and query launches once a search; K7 (knn_grid) on the last
+     finite volume, correspondences, the recovered pose, K7's bin,
+     scatter and query launches once a search and K8's once a later
+     view; K7 (knn_grid) on the last
      view's meshes against its plain twin, 0 unequal slots, timed;
+  10b. K8 (rigid_update) at 512³ (tools/profile_rigid_update.py): config
+     6's view 0 fused alone updated by view 1 fused alone, under the
+     identity and the ICP's calibration error (0.5° and 1.5 voxels), 0
+     voxels unequal to the plain twin in values and weights, one launch a
+     call; its CUDA-event mean (float4 and scalar) beside its bound of
+     20 bytes a voxel, the twin's time and its registers;
   11. benchmarks/suite.py config 7 at 256³ through the port's
      suite.run_config7 and Fusion: the reference mesh bent by 0.08, 0.16
      and 0.24 rad, per frame a live TSDF fused on the canonical lattice and
@@ -2142,8 +2149,9 @@ def phase_config6(torch, dev, verts, faces, maps, lws):
 
 def phase_icp(torch, dev, depths, lws):
     """The ICP branch at RES³ on the first ICP_VIEWS views: a finite
-    volume, correspondences, the recovered pose, and K7's three launches
-    (bin, scatter, query) once a search, 3 searches a later view. One
+    volume, correspondences, the recovered pose, K7's three launches
+    (bin, scatter, query) once a search, 3 searches a later view, and one
+    K8 launch (the rigid update) a later view. One
     search on the last view's meshes (view 0's canonical mesh at the
     solved pose against the last live mesh) is held to K7's plain twin
     (0 unequal slots) and timed. Returns (K7's table row, its query
@@ -2152,6 +2160,8 @@ def phase_icp(torch, dev, depths, lws):
     from dynamicfusion_body_tpu_torch.ops.dualquat import dq_transform_point
     from dynamicfusion_body_tpu_torch.ops.fusion_cuda import fuse_depth_multi
     from dynamicfusion_body_tpu_torch.ops.mc_cuda import mc_case_cross
+    from dynamicfusion_body_tpu_torch.ops.rigid_update_cuda import (
+        rigid_update)
     from dynamicfusion_body_tpu_torch.ops.se3 import dq_to_se3
     from dynamicfusion_body_tpu_torch.pipeline.fusion import FusionDM
 
@@ -2167,7 +2177,7 @@ def phase_icp(torch, dev, depths, lws):
 
     fus.solve = keep_live
     kernels = (fuse_depth_multi, mc_case_cross, K7.grid_bin,
-               K7.grid_scatter, K7.knn_grid)
+               K7.grid_scatter, K7.knn_grid, rigid_update)
     for kern in kernels:
         kern.launches = 0
     torch.cuda.synchronize()
@@ -2187,6 +2197,8 @@ def phase_icp(torch, dev, depths, lws):
     for name in ("grid_bin", "grid_scatter", "knn_grid"):
         check(launches[name] == searches, f"ICP: K7 launches {launches}, "
               f"{searches} searches")
+    check(launches["rigid_update"] == ICP_VIEWS - 1,
+          f"ICP: K8 launches {launches}, {ICP_VIEWS - 1} later views")
     check(len(fus.icp_poses) == ICP_VIEWS - 1,
           f"ICP: {len(fus.icp_poses)} poses for {ICP_VIEWS - 1} views")
     M = dq_to_se3(fus._lw).cpu().numpy()
@@ -2229,6 +2241,40 @@ def phase_icp(torch, dev, depths, lws):
           f"({row['bound_by']}); registers {info['registers']}, local bytes "
           f"{info['local_bytes']}, CTAs per SM {info['ctas_per_sm']}")
     return row, launches["knn_grid"]
+
+
+def phase_k8(torch, dev):
+    """Phase 10b: K8 at 512³ through ``tools/profile_rigid_update.py``
+    (its rows as '#' lines), every row 0 voxels unequal to the twin and
+    one launch a call. Returns (K8's table row: the ICP pose's, its
+    launches)."""
+    from dynamicfusion_body_tpu_torch.ops import rigid_update_cuda as K8
+    from dynamicfusion_body_tpu_torch.tools import profile_rigid_update
+
+    reps = 10
+    rows, _ = quiet(lambda: profile_rigid_update.run(512, dev, reps))
+    for r in rows:
+        check(r["unequal_values"] == 0 and r["unequal_weights"] == 0,
+              f"K8: {r['pose']} pose, {r['unequal_values']} values and "
+              f"{r['unequal_weights']} weights differ from the twin")
+        # the check's call, the warm-up and the timed calls of each
+        # instantiation
+        check(r["launches"] == 2 * (reps + 1) + 1,
+              f"K8: {r['launches']} launches in the {r['pose']} row")
+    icp = rows[-1]
+    info = {vec: K8.kernel_info(vec) for vec in (4, 1)}
+    print(f"# K8 (rigid_update) at 512^3, the ICP pose: 0 unequal voxels; "
+          f"kernel {icp['k8_ms']:.4f} ms (scalar {icp['scalar_ms']:.4f}), "
+          f"bound {icp['bound_ms']:.4f} ms (bytes), "
+          f"{icp['share_pct']:.1f}%; twin {icp['twin_ms']:.1f} ms; "
+          f"registers {info[4]['registers']}/{info[1]['registers']}, local "
+          f"bytes {info[4]['local_bytes']}/{info[1]['local_bytes']}, CTAs "
+          f"per SM {info[4]['ctas_per_sm']}")
+    check(all(i["local_bytes"] == 0 for i in info.values()), "K8 spills")
+    row = dict(max_abs_err=0.0, ms=icp["k8_ms"], plain_ms=icp["twin_ms"],
+               **bound(profile_rigid_update.BYTES_VOXEL * icp["voxels"], 0),
+               library_ms=None)
+    return row, sum(r["launches"] for r in rows)
 
 
 def phase_config7(torch, dev, verts, faces):
@@ -2752,6 +2798,9 @@ def main() -> int:
         # K7 replaces no TPU kernel: the JAX package's ICP runs the flat
         # search, ops/knn.py:knn
         "knn_grid": ("knn_grid.cu", None),
+        # K8 replaces no TPU kernel: the JAX package's rigid update is the
+        # plain jnp models/tsdf_volume.py:update_tsdf_rigid
+        "rigid_update": ("rigid_update.cu", None),
     }
     total = dict.fromkeys(meta, 0)
     info = print_kernel_info(torch)
@@ -2838,7 +2887,10 @@ def main() -> int:
     total["fuse_depth_multi"] += k5_n
     total["mc_case_cross"] += k1_n
     rows["knn_grid"], total["knn_grid"] = phase_icp(torch, dev, depths, lws)
-    stamp("K5, config 6, ICP branch")
+    # K8's launches: the ICP branch's, one a later view, and phase 10b's
+    rows["rigid_update"], n = phase_k8(torch, dev)
+    total["rigid_update"] = ICP_VIEWS - 1 + n
+    stamp("K5, config 6, ICP branch, K8")
     launches, c7_errs = phase_config7(torch, dev, verts, faces)
     for name, n in launches.items():
         total[name] += n

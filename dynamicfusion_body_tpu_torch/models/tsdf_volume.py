@@ -20,8 +20,7 @@ from dataclasses import dataclass
 
 import torch
 
-from ..ops.dualquat import dq_transform_point
-from ..ops.interp import trilinear
+from ..ops.rigid_update_cuda import rigid_update
 
 
 @dataclass
@@ -135,17 +134,6 @@ def update_tsdf_rigid(values, weights, live, lw_dq, tdist: float,
     global DQ, trilerp the live TSDF, running-average update (reference
     FusionDM.updateTSDF, core/fusion_dm.py:300-316: skip when the sample is
     out of volume or <= -tdist; wi = 1). ``x_offset`` as in
-    :func:`fuse_depth`."""
-    xs, ys, zs = _grid_axes(values.shape, values.device, x_offset)
-    pos = torch.stack(torch.broadcast_tensors(xs, ys, zs), dim=-1)
-    warped = dq_transform_point(lw_dq, pos.reshape(-1, 3))
-    tsdf_l, valid = trilinear(live, warped)
-    tsdf_l = tsdf_l.reshape(values.shape)
-    valid = valid.reshape(values.shape)
-
-    upd = valid & (tsdf_l > -tdist)
-    wi = 1.0
-    new_w = weights + wi
-    new_vals = (values * weights + torch.clamp_max(tsdf_l, tdist) * wi) / new_w
-    return (torch.where(upd, new_vals, values),
-            torch.where(upd, torch.clamp_max(new_w, wmax), weights))
+    :func:`fuse_depth`. K8 on the card, its plain twin on the CPU
+    (``ops/rigid_update_cuda.py``)."""
+    return rigid_update(values, weights, live, lw_dq, tdist, wmax, x_offset)

@@ -97,6 +97,14 @@ SIGNATURES = {
     # (k, out[6]): registers, local bytes, threads, CTAs per SM, static
     # shared bytes, 0
     "dfb_knn_grid_query_info": (_I, _IP),
+    # (vals, wts, live, dq, X, Y, Z, rx, ry, rz, x_offset, tdist, wmax,
+    #  vals_out, wts_out, vec (4: float4, 1: scalar), stream)
+    "dfb_rigid_update": (
+        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P, _P, _I, _P,
+    ),
+    # (vec, out[6]): registers, local bytes, threads, CTAs per SM, static
+    # shared bytes, 0
+    "dfb_rigid_update_info": (_I, _IP),
 }
 
 

@@ -60,7 +60,8 @@ import time
 import numpy as np
 import torch
 
-from ..ops import fusion_cuda, knn_grid_cuda, mc_cuda, trilerp_cuda
+from ..ops import (fusion_cuda, knn_grid_cuda, mc_cuda, rigid_update_cuda,
+                   trilerp_cuda)
 from ..utils.profiling import device_trace
 
 # the card's peaks (H100 SXM data sheet, dense, at 700 W): HBM bytes/s and
@@ -172,6 +173,7 @@ PORT_KERNELS = {
     knn_grid_cuda.knn_grid: "knn_grid_query_kernel",
     knn_grid_cuda.grid_bin: "knn_grid_bin_kernel",
     knn_grid_cuda.grid_scatter: "knn_grid_scatter_kernel",
+    rigid_update_cuda.rigid_update: "rigid_update_kernel",
 }
 
 

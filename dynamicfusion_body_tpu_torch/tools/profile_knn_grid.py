@@ -81,9 +81,10 @@ def _rotmat(q):
                       1 - 2 * (x * x + y * y)]])
 
 
-def view_meshes(res: int, dev, views=(0, 1, 2, 4)):
-    """{view: (verts (cap,3), n_verts 0-d)} of the views' single-view
-    TSDFs at res³, fused on the 8 views' calibrated grid."""
+def view_volumes(res: int, dev, views=(0, 1, 2, 4)):
+    """({view: (values, weights) of its single-view TSDF at res³}, tdist),
+    each view fused alone on the grid the 8 views calibrate, as
+    ``FusionDM.compute_live_tsdf(useICP=True)`` fuses them."""
     verts, faces = reference_mesh()
     img = IMG if dev.type == "cuda" else 64
     Kc = camera(img)
@@ -94,12 +95,21 @@ def view_meshes(res: int, dev, views=(0, 1, 2, 4)):
                                   fus._stack(lws))
     ind = make_ind_matrix(res, avg, std, factor=8.0)
     fus.volume = TsdfVolume.create(res, fus._tdist, ind=ind)
-    cap = 1 << max(14, math.ceil(math.log2(40.0 * res * res)))
     out = {}
     for v in views:
         fresh = TsdfVolume.create(res, fus._tdist, ind=ind)
-        vol, _ = fus._fuse(fresh.values, fresh.weights, maps[v:v + 1],
+        out[v] = fus._fuse(fresh.values, fresh.weights, maps[v:v + 1],
                            [lws[v]])
+    return out, fus._tdist
+
+
+def view_meshes(res: int, dev, views=(0, 1, 2, 4)):
+    """{view: (verts (cap,3), n_verts 0-d)} of the views' single-view
+    TSDFs at res³ (:func:`view_volumes`), meshed at stride 1."""
+    vols, _ = view_volumes(res, dev, views)
+    cap = 1 << max(14, math.ceil(math.log2(40.0 * res * res)))
+    out = {}
+    for v, (vol, _) in vols.items():
         m = marching_cubes(vol, vert_cap=cap, face_cap=2 * cap,
                            with_normals=False, use_kernels=True)
         if bool(m["overflow"]):

@@ -30,7 +30,8 @@ new = {"benchmarks.bench512_sharded", "native", "utils.visualize",
        "tools.sweep_frame5", "tools.make_ablation", "tools.gen_mc_tables",
        "tools.convert_tf_dhbc", "tools.profile_mc2", "tools.profile_prims",
        "tools.profile_prims2", "tools.profile_solver", "tools.exp_asm",
-       "ops.knn_grid_cuda", "tools.profile_knn_grid"}
+       "ops.knn_grid_cuda", "tools.profile_knn_grid", "ops.rigid_update_cuda",
+       "tools.profile_rigid_update"}
 missing = {m for m in new if pkg.__name__ + "." + m not in mods}
 assert not missing, missing
 assert "matplotlib" not in sys.modules  # imported lazily, on a call

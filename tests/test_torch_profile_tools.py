@@ -198,5 +198,5 @@ def test_port_kernel_names_are_cuda_symbols():
                       r"(?:[^()]|\([^()]*\))*\)\s+)?(\w+)\s*\(")
     names = {m.group(1) for src in csrc.glob("*.cu")
              for m in decl.finditer(src.read_text())}
-    assert len(names) == 9, names
+    assert len(names) == 10, names
     assert set(_timing.PORT_KERNELS.values()) == names
