@@ -710,7 +710,7 @@ def sass_functions(torch):
 
     tool = Path(CUDA_HOME or "/usr/local/cuda") / "bin" / "cuobjdump"
     check(tool.exists(), f"no {tool} to read the kernels' SASS")
-    text = subprocess.run([str(tool), "-sass", str(cuda_lib.library_path())],
+    text = subprocess.run([str(tool), "-sass", str(cuda_lib.build()[0])],
                           capture_output=True, text=True, timeout=300,
                           check=True).stdout
     funcs, cur = {}, None
@@ -2769,7 +2769,7 @@ def main() -> int:
         if any(w in line for w in ("entry function", "registers", "spill",
                                    "error")):
             print(f"# nvcc: {line.strip()}")
-    cuda_lib.lib()
+    cuda_lib.KERNELS.handle
     print(f"# kernels built in {build_s:.1f} s")
 
     def stamp(name):
@@ -2954,9 +2954,11 @@ def main() -> int:
         total[name] += n
     stamp("microbenchmarks")
 
+    symbols = {fn.__name__: k for fn, k in cuda_lib.wrappers().items()}
     table = {"kernels": [
         dict(name=name, route="cuda", source=f"{PKG}_torch/csrc/{src}",
-             replaces=tpu, launches=total[name], **rows[name])
+             kernel=symbols[name], replaces=tpu, launches=total[name],
+             **rows[name])
         for name, (src, tpu) in meta.items()]}
     print(json.dumps(table))
     print(smi)

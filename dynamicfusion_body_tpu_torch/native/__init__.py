@@ -2,10 +2,8 @@
 counterpart of ``dynamicfusion_body_tpu/native/__init__.py``.
 
 The library is built at first use with ``g++ -O2 -shared -fPIC
--std=c++17`` into ``dynamicfusion_body_tpu_torch/_build/`` (listed in
-``.gitignore``) under a name carrying a hash of the source, so an edited
-source is rebuilt and a stale binary is never loaded; the build writes a
-temporary file and renames it, so concurrent first uses do not clash.
+-std=c++17`` and loaded as the kernels are (``ops/cuda_lib.py``: a name
+hashed from the source, an atomic rename, the entries declared below).
 A failed build raises. Unlike the JAX package's loader, nothing falls
 back to Python here: ``io/sdf_io.py:load_sdf`` and ``io/mesh_io.py``'s
 ``load_obj``/``save_obj`` take their Python path only when the caller
@@ -19,84 +17,66 @@ the C side reports a failure (a file it cannot open or a short read).
 from __future__ import annotations
 
 import ctypes
-import functools
-import hashlib
 import os
 import subprocess
 from pathlib import Path
 
 import numpy as np
 
+from ..ops import cuda_lib
+
 SRC = Path(__file__).resolve().parent / "dfio.cc"
-BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+BUILD_DIR = cuda_lib.BUILD_DIR
 CXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
 
-_F = ctypes.POINTER(ctypes.c_float)
-_D = ctypes.POINTER(ctypes.c_double)
-_I32 = ctypes.POINTER(ctypes.c_int32)
-_I64 = ctypes.POINTER(ctypes.c_int64)
-SIGNATURES = {
-    # (path, verts, n_verts, normals or null, faces, n_faces, ind or null)
-    "dfio_write_obj": (ctypes.c_char_p, _F, ctypes.c_int64, _F, _I32,
-                       ctypes.c_int64, _D),
-    # (path, out n_verts, out n_faces)
-    "dfio_read_obj_counts": (ctypes.c_char_p, _I64, _I64),
-    # (path, verts, n_verts, faces, n_faces)
-    "dfio_read_obj": (ctypes.c_char_p, _F, ctypes.c_int64, _I32,
-                      ctypes.c_int64),
-    # (path, out res (3,), out b_min (3,), out b_max (3,))
-    "dfio_read_dist_header": (ctypes.c_char_p, _I32, _D, _D),
-    # (path, volume, rx, ry, rz)
-    "dfio_read_dist": (ctypes.c_char_p, _F, ctypes.c_int32, ctypes.c_int32,
-                       ctypes.c_int32),
-}
 
-
-def library_path() -> Path:
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    h.update(SRC.read_bytes())
-    return BUILD_DIR / f"libdfio_{h.hexdigest()[:16]}.so"
+def _gxx(out: Path) -> str:
+    try:
+        res = subprocess.run(["g++", *CXX_FLAGS, str(SRC), "-o", str(out)],
+                             capture_output=True, text=True)
+    except OSError as exc:
+        raise RuntimeError(f"native I/O: g++ did not run: {exc}") from exc
+    if res.returncode != 0:
+        raise RuntimeError(f"native I/O: g++ failed ({res.returncode}):\n"
+                           f"{res.stdout}{res.stderr}")
+    return res.stdout + res.stderr
 
 
 def build() -> Path:
     """Compile ``dfio.cc`` unless the library of the current source exists;
     raises RuntimeError with g++'s output when the build fails."""
-    so = library_path()
-    if so.exists():
-        return so
-    BUILD_DIR.mkdir(exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    try:
-        res = subprocess.run(["g++", *CXX_FLAGS, str(SRC), "-o", str(tmp)],
-                             capture_output=True, text=True)
-    except OSError as exc:
-        raise RuntimeError(f"native I/O: g++ did not run: {exc}") from exc
-    if res.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"native I/O: g++ failed ({res.returncode}):\n"
-                           f"{res.stdout}{res.stderr}")
-    os.replace(tmp, so)
-    return so
+    return cuda_lib.build_library("dfio", [SRC], CXX_FLAGS, _gxx,
+                                  BUILD_DIR)[0]
 
 
-@functools.cache
-def lib() -> ctypes.CDLL:
-    """The loaded library, built first if needed."""
-    handle = ctypes.CDLL(str(build()))
-    for name, argtypes in SIGNATURES.items():
-        fn = getattr(handle, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return handle
+def _error(name, code, args):
+    raise OSError(f"{name}({os.fsdecode(args[0])}) failed with code {code}")
+
+
+LIB = cuda_lib.Library(build, _error)
+_F = ctypes.POINTER(ctypes.c_float)
+_D = ctypes.POINTER(ctypes.c_double)
+_I32 = ctypes.POINTER(ctypes.c_int32)
+_I64 = ctypes.POINTER(ctypes.c_int64)
+# (path, verts, n_verts, normals or null, faces, n_faces, ind or null)
+_WRITE_OBJ = LIB.entry("dfio_write_obj", ctypes.c_char_p, _F, ctypes.c_int64,
+                       _F, _I32, ctypes.c_int64, _D)
+# (path, out n_verts, out n_faces)
+_READ_OBJ_COUNTS = LIB.entry("dfio_read_obj_counts", ctypes.c_char_p, _I64,
+                             _I64)
+# (path, verts, n_verts, faces, n_faces)
+_READ_OBJ = LIB.entry("dfio_read_obj", ctypes.c_char_p, _F, ctypes.c_int64,
+                      _I32, ctypes.c_int64)
+# (path, out res (3,), out b_min (3,), out b_max (3,))
+_READ_DIST_HEADER = LIB.entry("dfio_read_dist_header", ctypes.c_char_p, _I32,
+                              _D, _D)
+# (path, volume, rx, ry, rz)
+_READ_DIST = LIB.entry("dfio_read_dist", ctypes.c_char_p, _F, ctypes.c_int32,
+                       ctypes.c_int32, ctypes.c_int32)
 
 
 def _ptr(a: np.ndarray, ctype):
     return a.ctypes.data_as(ctypes.POINTER(ctype))
-
-
-def _check(name: str, rc: int, path) -> None:
-    if rc != 0:
-        raise OSError(f"{name}({path!s}) failed with code {rc}")
 
 
 def write_obj(path, verts, faces, normals=None, ind=None) -> None:
@@ -118,23 +98,19 @@ def write_obj(path, verts, faces, normals=None, ind=None) -> None:
             raise ValueError(f"write_obj: ind must be (4, 4), got "
                              f"{ind.shape}")
         iptr = _ptr(ind, ctypes.c_double)
-    _check("dfio_write_obj", lib().dfio_write_obj(
-        os.fsencode(path), _ptr(verts, ctypes.c_float), len(verts), nptr,
-        _ptr(faces, ctypes.c_int32), len(faces), iptr), path)
+    _WRITE_OBJ(os.fsencode(path), _ptr(verts, ctypes.c_float), len(verts),
+               nptr, _ptr(faces, ctypes.c_int32), len(faces), iptr)
 
 
 def read_obj(path):
     """Parse an OBJ → (verts (V, 3) float32, faces (F, 3) int32,
     zero-based when the file is one-based)."""
     nv, nf = ctypes.c_int64(), ctypes.c_int64()
-    handle = lib()
-    _check("dfio_read_obj_counts", handle.dfio_read_obj_counts(
-        os.fsencode(path), ctypes.byref(nv), ctypes.byref(nf)), path)
+    _READ_OBJ_COUNTS(os.fsencode(path), ctypes.byref(nv), ctypes.byref(nf))
     verts = np.empty((nv.value, 3), np.float32)
     faces = np.empty((nf.value, 3), np.int32)
-    _check("dfio_read_obj", handle.dfio_read_obj(
-        os.fsencode(path), _ptr(verts, ctypes.c_float), nv.value,
-        _ptr(faces, ctypes.c_int32), nf.value), path)
+    _READ_OBJ(os.fsencode(path), _ptr(verts, ctypes.c_float), nv.value,
+              _ptr(faces, ctypes.c_int32), nf.value)
     return verts, faces
 
 
@@ -143,14 +119,12 @@ def read_dist(path):
     (rx+1, ry+1, rz+1) float32, x-major)."""
     res = np.empty(3, np.int32)
     b_min, b_max = np.empty(3, np.float64), np.empty(3, np.float64)
-    handle = lib()
-    _check("dfio_read_dist_header", handle.dfio_read_dist_header(
-        os.fsencode(path), _ptr(res, ctypes.c_int32),
-        _ptr(b_min, ctypes.c_double), _ptr(b_max, ctypes.c_double)), path)
+    _READ_DIST_HEADER(os.fsencode(path), _ptr(res, ctypes.c_int32),
+                      _ptr(b_min, ctypes.c_double),
+                      _ptr(b_max, ctypes.c_double))
     rx, ry, rz = (int(r) for r in res)
     if min(rx, ry, rz) < 0:
         raise OSError(f"read_dist({path!s}): bad resolution {res}")
     volume = np.empty((rx + 1, ry + 1, rz + 1), np.float32)
-    _check("dfio_read_dist", handle.dfio_read_dist(
-        os.fsencode(path), _ptr(volume, ctypes.c_float), rx, ry, rz), path)
+    _READ_DIST(os.fsencode(path), _ptr(volume, ctypes.c_float), rx, ry, rz)
     return b_min, b_max, volume

@@ -1,15 +1,20 @@
-"""Build and load the port's hand-written CUDA kernels.
+"""The port's one boundary to foreign code: the shared libraries that
+``ctypes`` loads, the C entries declared on them, and the rule by which a
+kernel's wrapper takes the kernel or its twin (:func:`wrapper`).
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` (one
-``nvcc`` process per source, all started together) and linked into one
-shared library with a plain C interface, which ``ctypes`` loads. The
-library is built at first use into ``dynamicfusion_body_tpu_torch/_build/``
-(listed in ``.gitignore``) and rebuilt whenever a hash of the sources and
-flags changes, so a fresh checkout builds it on its first kernel call.
+A library is built at first use into ``dynamicfusion_body_tpu_torch/
+_build/`` (listed in ``.gitignore``) under a name hashed from its sources
+and flags, so a changed source is rebuilt and a stale binary is never
+loaded; the build renames a temporary file, so concurrent first uses do
+not clash. A failed build raises with the compiler's output.
 
-Each C entry point launches its kernel on the stream it is given (the
-caller passes ``torch.cuda.current_stream()``), allocates nothing, and
-returns ``cudaGetLastError()``; :func:`check` raises on a nonzero code.
+Each C entry is declared once, in the module that calls it
+(:meth:`Library.entry`), and binds at its first call, which loads its
+library. The kernels' library, :data:`KERNELS`, links every ``csrc/*.cu``
+file, each compiled by its own ``nvcc`` process for ``sm_90a``. Its
+entries launch their kernel on the stream they are given (the caller
+passes ``torch.cuda.current_stream()``), allocate nothing, and return
+``cudaGetLastError()``.
 
 ``-fmad=false`` keeps nvcc from contracting a*b+c into one FMA: the
 kernels evaluate their arithmetic in the same order as their PyTorch
@@ -22,7 +27,9 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import importlib
 import os
+import pkgutil
 import subprocess
 import time
 from pathlib import Path
@@ -35,107 +42,93 @@ NVCC_FLAGS = (
     "-fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC",
 )
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_F = ctypes.c_float
-_IP = ctypes.POINTER(ctypes.c_int)
-SIGNATURES = {
-    # (vol, out, X, Y, Z, vol's element strides x/y/z, 1 if the storage
-    #  holds an element past the view's last one, level, stream)
-    "dfb_mc_case_cross": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
-    # (instantiation, out[6]) and (vec, n_views, out[6]): registers, local
-    # bytes, threads, CTAs per SM, shared bytes, 0
-    "dfb_mc_case_cross_info": (_I, _IP),
-    "dfb_fuse_depth_multi_info": (_I, _I, _IP),
-    # (live, node_dq, cand, sel, selw, lw, mip_mn, mip_mx, use_mip,
-    #  tdist, rx, ry, rz, vy, vz, brick, NB, C, k, M (nodes),
-    #  vals, valid, wx, wy, wz (all three null: no coordinates), stream)
-    "dfb_warp_trilerp_cached": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _I,
-        _F, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-        _P, _P, _P, _P, _P, _P,
-    ),
-    # (live, node_pos, node_w, active (int32), node_dq, cand, lw,
-    #  rx, ry, rz, vy, vz, brick, NB, C, k, M (nodes),
-    #  vals, valid, wi, wx, wy, wz (all three null: no coordinates), stream)
-    "dfb_warp_trilerp_bricks": (
-        _P, _P, _P, _P, _P, _P, _P,
-        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-        _P, _P, _P, _P, _P, _P, _P,
-    ),
-    # (brick, k, out[6]) and (C, out[6]): registers, local bytes, threads,
-    # CTAs per SM, persistent grid, dynamic shared bytes
-    "dfb_warp_trilerp_cached_info": (_I, _I, _IP),
-    "dfb_warp_trilerp_bricks_info": (_I, _IP),
-    # (live, wx, wy, wz, n, rx, ry, rz, vals, valid, stream)
-    "dfb_trilerp_bricks": (
-        _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _P, _P, _P,
-    ),
-    # (mode, threads, live, wx, wy, wz, n, V (samples a row), rx, ry, rz,
-    #  out, row_map (null: none), stream)
-    "dfb_trilerp_ablation": (
-        _I, _I, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _P, _P,
-        _P,
-    ),
-    # (mode, threads, V, out[6]): registers, local bytes, threads, CTAs per
-    # SM, persistent grid, dynamic shared bytes
-    "dfb_trilerp_ablation_info": (_I, _I, _I, _IP),
-    # (vals, wts, depths, projs, kinv_row2, n_views, h, w, X, Y, Z,
-    #  tdist, wmax, vals_out, wts_out, cull_out (null: none), stream)
-    "dfb_fuse_depth_multi": (
-        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-        _F, _F, _P, _P, _P, _P,
-    ),
-    # (points, n_points (int32 on the card), P, levels, 1/cell, counts,
-    #  codes, ranks, stream)
-    "dfb_knn_grid_bin": (_P, _P, _I, _I, _F, _P, _P, _P, _P),
-    # (points, n_points, P, offsets, codes, ranks, sorted float4, stream)
-    "dfb_knn_grid_scatter": (_P, _P, _I, _P, _P, _P, _P, _P),
-    # (queries, n_queries (int32 on the card), Q, sorted, offsets, levels,
-    #  cell, k, dists, idx, stream)
-    "dfb_knn_grid_query": (_P, _P, _I, _P, _P, _I, _F, _I, _P, _P, _P),
-    # (k, out[6]): registers, local bytes, threads, CTAs per SM, static
-    # shared bytes, 0
-    "dfb_knn_grid_query_info": (_I, _IP),
-    # (vals, wts, live, dq, X, Y, Z, rx, ry, rz, x_offset, tdist, wmax,
-    #  vals_out, wts_out, vec (4: float4, 1: scalar), stream)
-    "dfb_rigid_update": (
-        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P, _P, _I, _P,
-    ),
-    # (vec, out[6]): registers, local bytes, threads, CTAs per SM, static
-    # shared bytes, 0
-    "dfb_rigid_update_info": (_I, _IP),
-}
+# the argument types of the C entries: pointer, int, float, long long,
+# and the six-int buffer of an ``_info`` entry
+PTR = ctypes.c_void_p
+INT = ctypes.c_int
+FLOAT = ctypes.c_float
+LLONG = ctypes.c_longlong
+BUF = ctypes.POINTER(ctypes.c_int)
 
 
-def _sources():
-    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
-
-
-def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+def build_library(stem: str, sources, flags, compile,
+                  build_dir=BUILD_DIR) -> tuple[Path, float, str]:
+    """``build_dir/lib<stem>_<hash of flags and sources>.so``, written by
+    ``compile(path)`` (which returns the compiler's output or raises
+    RuntimeError with it) unless it exists. Returns (library path, build
+    seconds, compiler output)."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    for src in sources:
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"libdfb_kernels_{h.hexdigest()[:16]}.so"
-
-
-def build() -> tuple[Path, float, str]:
-    """Compile the kernels unless the library for the current sources
-    exists. Returns (library path, build seconds, nvcc's output)."""
-    so = library_path()
+    so = Path(build_dir) / f"lib{stem}_{h.hexdigest()[:16]}.so"
     if so.exists():
         return so, 0.0, ""
+    so.parent.mkdir(exist_ok=True)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    try:
+        log = compile(tmp)
+    except BaseException:
+        tmp.unlink(missing_ok=True)
+        raise
+    os.replace(tmp, so)
+    return so, time.perf_counter() - t0, log
+
+
+class Library:
+    """A library and its declared entries: ``build()`` returns its path,
+    ``error(name, code, args)`` raises for an entry that returned
+    ``code`` != 0."""
+
+    def __init__(self, build, error):
+        self.build, self.error = build, error
+        self.entries: dict[str, Entry] = {}
+
+    @functools.cached_property
+    def handle(self) -> ctypes.CDLL:
+        return ctypes.CDLL(str(self.build()))
+
+    def entry(self, name: str, *argtypes, kernel: str | None = None):
+        """Declare the C entry ``name`` (it returns an int), its ctypes
+        ``argtypes`` and the ``__global__`` ``kernel`` it launches, if
+        any: the name its launches show in a trace."""
+        self.entries[name] = Entry(self, name, argtypes, kernel)
+        return self.entries[name]
+
+
+class Entry:
+    """A declared C entry. A call raises through the library's ``error``
+    on a nonzero return and counts a launch in ``wrapper.launches``."""
+
+    def __init__(self, library: Library, name: str, argtypes: tuple,
+                 kernel: str | None):
+        self.library, self.name = library, name
+        self.argtypes, self.kernel = argtypes, kernel
+        self.wrapper = None
+
+    @functools.cached_property
+    def fn(self):
+        fn = getattr(self.library.handle, self.name)
+        fn.argtypes, fn.restype = self.argtypes, ctypes.c_int
+        return fn
+
+    def __call__(self, *args) -> None:
+        code = self.fn(*args)
+        if code != 0:
+            self.library.error(self.name, code, args)
+        if self.wrapper is not None:
+            self.wrapper.launches += 1
+
+
+def _nvcc(out: Path) -> str:
     from torch.utils.cpp_extension import CUDA_HOME
 
     if CUDA_HOME is None:
         raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
     nvcc = str(Path(CUDA_HOME) / "bin" / "nvcc")
-    BUILD_DIR.mkdir(exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    srcs = [s for s in _sources() if s.suffix == ".cu"]
-    objs = [tmp.with_name(f"{tmp.name}.{s.stem}.o") for s in srcs]
-    t0 = time.perf_counter()
+    srcs = sorted(CSRC.glob("*.cu"))
+    objs = [out.with_name(f"{out.name}.{s.stem}.o") for s in srcs]
     procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                               text=True)
@@ -145,7 +138,7 @@ def build() -> tuple[Path, float, str]:
               for s, p, log in zip(srcs, procs, logs) if p.returncode != 0]
     if not failed:
         link = subprocess.run([nvcc, "-shared", *NVCC_FLAGS[:2], "-o",
-                               str(tmp), *map(str, objs)],
+                               str(out), *map(str, objs)],
                               capture_output=True, text=True)
         logs.append(link.stdout + link.stderr)
         if link.returncode != 0:
@@ -155,20 +148,21 @@ def build() -> tuple[Path, float, str]:
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(
             f"{name} ({rc}):\n{log}" for name, rc, log in failed))
-    os.replace(tmp, so)
-    return so, time.perf_counter() - t0, "".join(logs)
+    return "".join(logs)
 
 
-@functools.cache
-def lib() -> ctypes.CDLL:
-    """The loaded kernel library, built first if needed."""
-    so, _, _ = build()
-    handle = ctypes.CDLL(str(so))
-    for name, argtypes in SIGNATURES.items():
-        fn = getattr(handle, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return handle
+def build() -> tuple[Path, float, str]:
+    """Compile the kernels unless the library for the current sources
+    exists. Returns (library path, build seconds, nvcc's output)."""
+    return build_library("dfb_kernels", sorted(CSRC.glob("*.cu"))
+                         + sorted(CSRC.glob("*.cuh")), NVCC_FLAGS, _nvcc)
+
+
+def _cuda_error(name, code, args):
+    raise RuntimeError(f"{name}: CUDA error {code}")
+
+
+KERNELS = Library(lambda: build()[0], _cuda_error)
 
 
 def stream_ptr(device) -> int:
@@ -177,6 +171,50 @@ def stream_ptr(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def check(name: str, err: int) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+def wrapper(entry: Entry, twin=None, check=None):
+    """Make ``fn``, which launches ``entry`` on CUDA tensors, the kernel's
+    wrapper: it runs ``check`` (if any) on its arguments, then a CPU first
+    argument takes ``twin`` (the plain PyTorch version, same arguments), a
+    CUDA one ``fn``, and any other device, or the CPU without a twin,
+    raises ValueError. Its ``launches`` counts ``entry``'s launches, also
+    those of other functions that call it."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            if check is not None:
+                check(*args, **kwargs)
+            device = args[0].device
+            if device.type == "cpu" and twin is not None:
+                return twin(*args, **kwargs)
+            if device.type != "cuda":
+                raise ValueError(f"{fn.__name__}: unsupported device {device}")
+            return fn(*args, **kwargs)
+
+        call.launches = 0
+        entry.wrapper = call
+        return call
+    return wrap
+
+
+def wrappers() -> dict:
+    """Every kernel wrapper (the ``*_cuda`` modules of ``ops/`` are
+    imported here) → the ``__global__`` kernel its launches run."""
+    for mod in pkgutil.iter_modules([str(Path(__file__).parent)]):
+        if mod.name.endswith("_cuda"):
+            importlib.import_module(f"{__package__}.{mod.name}")
+    return {e.wrapper: e.kernel for e in KERNELS.entries.values()
+            if e.wrapper is not None}
+
+
+INFO_KEYS = ("registers", "local_bytes", "threads", "ctas_per_sm")
+
+
+def info(entry: Entry, *args, last=("static_smem", "grid")) -> dict:
+    """What the card makes of one kernel instantiation, from an ``_info``
+    entry called with ``args`` and a six-int buffer: registers and local
+    (spill) bytes per thread, threads per CTA, CTAs per SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), then the fields
+    named ``last``. Needs the card."""
+    buf = (ctypes.c_int * 6)()
+    entry(*args, buf)
+    return dict(zip(INFO_KEYS + tuple(last), buf))

@@ -18,12 +18,11 @@ tests and the smoke's count of what it skips.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from ..models.tsdf_volume import fuse_depth
 from . import cuda_lib
+from .cuda_lib import BUF, FLOAT, INT, PTR
 
 # the n x 12 projection entries and K⁻¹'s row 2 sit in the 48 KiB of
 # dynamic shared memory a launch gets without an opt-in
@@ -126,6 +125,39 @@ def fuse_cull_tiles(shape, projs, h: int, w: int) -> torch.Tensor:
     return torch.where(wmin > e[2], front, (wmax < -e[2]) & back)
 
 
+def _check_cull_map(values, weights, depths, projs, kinv_row2, tdist,
+                    wmax=100.0, cull_map=None) -> None:
+    if cull_map is None:
+        return
+    want = (depths.shape[0], *cull_grid(values.shape))
+    if (tuple(cull_map.shape) != want or cull_map.dtype != torch.uint8
+            or cull_map.device != values.device
+            or not cull_map.is_contiguous()):
+        raise ValueError(f"fuse_depth_multi: cull_map must be a "
+                         f"contiguous uint8 {want} on {values.device}")
+
+
+def _twin(values, weights, depths, projs, kinv_row2, tdist, wmax=100.0,
+          cull_map=None):
+    """The CPU's fuse_depth_multi: the plain twin, and ``cull_map`` the
+    PyTorch predicate."""
+    if cull_map is not None:
+        cull_map.copy_(fuse_cull_tiles(values.shape, projs,
+                                       *depths.shape[1:]))
+    return fuse_depth_multi_ref(values, weights, depths, projs, kinv_row2,
+                                tdist, wmax)
+
+
+# (vals, wts, depths, projs, kinv_row2, n_views, h, w, X, Y, Z, tdist,
+#  wmax, vals_out, wts_out, cull_out (null: none), stream)
+_LAUNCH = cuda_lib.KERNELS.entry(
+    "dfb_fuse_depth_multi", PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT,
+    INT, FLOAT, FLOAT, PTR, PTR, PTR, PTR, kernel="fuse_depth_multi_kernel")
+# (vec, n_views, out[6])
+_INFO = cuda_lib.KERNELS.entry("dfb_fuse_depth_multi_info", INT, INT, BUF)
+
+
+@cuda_lib.wrapper(_LAUNCH, twin=_twin, check=_check_cull_map)
 def fuse_depth_multi(values, weights, depths, projs, kinv_row2,
                      tdist: float, wmax: float = 100.0, cull_map=None):
     """Fuse ``n`` depth maps into a TSDF in one pass.
@@ -134,26 +166,9 @@ def fuse_depth_multi(values, weights, depths, projs, kinv_row2,
     projs (n,3,4) f32 = K·lw·IND; kinv_row2 (3,) f32, row 2 of K⁻¹.
     Returns new (values, weights). ``cull_map``, a uint8 tensor of shape
     (n, *cull_grid(values.shape)) on the volume's device, receives 1 where
-    the view was culled for that warp tile (the fusion path passes none).
-
-    A CPU tensor takes the plain twin (and ``cull_map`` the PyTorch
-    predicate); a CUDA tensor launches the kernel (strided views are made
-    contiguous first) or raises."""
-    if cull_map is not None:
-        n, h, w = depths.shape
-        want = (n, *cull_grid(values.shape))
-        if (tuple(cull_map.shape) != want or cull_map.dtype != torch.uint8
-                or cull_map.device != values.device
-                or not cull_map.is_contiguous()):
-            raise ValueError(f"fuse_depth_multi: cull_map must be a "
-                             f"contiguous uint8 {want} on {values.device}")
-    if values.device.type == "cpu":
-        if cull_map is not None:
-            cull_map.copy_(fuse_cull_tiles(values.shape, projs, h, w))
-        return fuse_depth_multi_ref(values, weights, depths, projs,
-                                    kinv_row2, tdist, wmax)
-    if values.device.type != "cuda":
-        raise ValueError(f"fuse_depth_multi: unsupported device {values.device}")
+    the view was culled for that warp tile (the fusion path passes none;
+    on the CPU it receives :func:`fuse_cull_tiles`). The kernel takes
+    strided views made contiguous."""
     args = (values, weights, depths, projs, kinv_row2)
     check_args(*args)
     vals_c, wts_c, dep_c, proj_c, kr_c = (a.contiguous() for a in args)
@@ -161,34 +176,19 @@ def fuse_depth_multi(values, weights, depths, projs, kinv_row2,
     out_w = torch.empty_like(wts_c)
     n, h, w = depths.shape
     X, Y, Z = values.shape
-    err = cuda_lib.lib().dfb_fuse_depth_multi(
-        vals_c.data_ptr(), wts_c.data_ptr(), dep_c.data_ptr(),
-        proj_c.data_ptr(), kr_c.data_ptr(), n, h, w, X, Y, Z, float(tdist),
-        float(wmax), out_v.data_ptr(), out_w.data_ptr(),
-        None if cull_map is None else cull_map.data_ptr(),
-        cuda_lib.stream_ptr(values.device),
-    )
-    cuda_lib.check("fuse_depth_multi", err)
-    fuse_depth_multi.launches += 1
+    _LAUNCH(vals_c.data_ptr(), wts_c.data_ptr(), dep_c.data_ptr(),
+            proj_c.data_ptr(), kr_c.data_ptr(), n, h, w, X, Y, Z,
+            float(tdist), float(wmax), out_v.data_ptr(), out_w.data_ptr(),
+            None if cull_map is None else cull_map.data_ptr(),
+            cuda_lib.stream_ptr(values.device))
     return out_v, out_w
-
-
-fuse_depth_multi.launches = 0
 
 
 def kernel_info(n_views: int = 8) -> dict:
     """What the card makes of K5's two instantiations (``vec``: 16-byte
-    loads where Z % 4 == 0; ``scalar``: any Z): registers and local (spill)
-    bytes per thread, threads per CTA, CTAs per SM at ``n_views`` views
-    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and the dynamic
-    shared bytes that takes. Needs the card."""
-    keys = ("registers", "local_bytes", "threads", "ctas_per_sm",
-            "dynamic_smem", "grid")
-    out = {}
-    for name, vec in (("vec", 1), ("scalar", 0)):
-        buf = (ctypes.c_int * len(keys))()
-        cuda_lib.check("fuse_depth_multi info",
-                       cuda_lib.lib().dfb_fuse_depth_multi_info(
-                           vec, n_views, buf))
-        out[name] = dict(zip(keys, buf))
-    return out
+    loads where Z % 4 == 0; ``scalar``: any Z), as :func:`cuda_lib.info`
+    reads it at ``n_views`` views, with the dynamic shared bytes that
+    takes. Needs the card."""
+    return {name: cuda_lib.info(_INFO, vec, n_views,
+                                last=("dynamic_smem", "grid"))
+            for name, vec in (("vec", 1), ("scalar", 0))}

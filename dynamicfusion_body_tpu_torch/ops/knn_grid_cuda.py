@@ -33,12 +33,12 @@ bit for bit.
 
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
 
 from . import cuda_lib
+from .cuda_lib import BUF, FLOAT, INT, PTR
 
 MAX_K = 8          # csrc/knn_grid.cu:kMaxK
 MAX_LEVELS = 9     # csrc/knn_grid.cu:kMaxLevels: at most 512 cells a side
@@ -197,6 +197,25 @@ def _count(n, device) -> torch.Tensor:
     return torch.tensor(int(n), dtype=torch.int32, device=device)
 
 
+# (points, n_points (int32 on the card), P, levels, 1/cell, counts, codes,
+#  ranks, stream)
+_BIN = cuda_lib.KERNELS.entry(
+    "dfb_knn_grid_bin", PTR, PTR, INT, INT, FLOAT, PTR, PTR, PTR, PTR,
+    kernel="knn_grid_bin_kernel")
+# (points, n_points, P, offsets, codes, ranks, sorted float4, stream)
+_SCATTER = cuda_lib.KERNELS.entry(
+    "dfb_knn_grid_scatter", PTR, PTR, INT, PTR, PTR, PTR, PTR, PTR,
+    kernel="knn_grid_scatter_kernel")
+# (queries, n_queries (int32 on the card), Q, sorted, offsets, levels,
+#  cell, k, dists, idx, stream)
+_QUERY = cuda_lib.KERNELS.entry(
+    "dfb_knn_grid_query", PTR, PTR, INT, PTR, PTR, INT, FLOAT, INT, PTR, PTR,
+    PTR, kernel="knn_grid_query_kernel")
+# (k, out[6])
+_QUERY_INFO = cuda_lib.KERNELS.entry("dfb_knn_grid_query_info", INT, BUF)
+
+
+@cuda_lib.wrapper(_BIN)
 def grid_bin(points, n_p, levels: int, cell: float):
     """Each of the first ``n_p`` points' cell code and rank in its cell,
     and the cells' counts (8^levels,) int32 (``knn_grid_bin_kernel``)."""
@@ -205,31 +224,22 @@ def grid_bin(points, n_p, levels: int, cell: float):
     cnt = torch.zeros(1 << (3 * levels), dtype=torch.int32, device=dev)
     code = torch.empty(P, dtype=torch.int32, device=dev)
     rank = torch.empty(P, dtype=torch.int32, device=dev)
-    cuda_lib.check("knn_grid bin", cuda_lib.lib().dfb_knn_grid_bin(
-        points.data_ptr(), n_p.data_ptr(), P, levels, 1.0 / cell,
-        cnt.data_ptr(), code.data_ptr(), rank.data_ptr(),
-        cuda_lib.stream_ptr(dev)))
-    grid_bin.launches += 1
+    _BIN(points.data_ptr(), n_p.data_ptr(), P, levels, 1.0 / cell,
+         cnt.data_ptr(), code.data_ptr(), rank.data_ptr(),
+         cuda_lib.stream_ptr(dev))
     return code, rank, cnt
 
 
-grid_bin.launches = 0
-
-
+@cuda_lib.wrapper(_SCATTER)
 def grid_scatter(points, n_p, off, code, rank):
     """The first ``n_p`` points in cell order as float4 (x, y, z, index
     bits) (P,4) (``knn_grid_scatter_kernel``)."""
     sorted_pts = torch.empty((points.shape[0], 4), dtype=torch.float32,
                              device=points.device)
-    cuda_lib.check("knn_grid scatter", cuda_lib.lib().dfb_knn_grid_scatter(
-        points.data_ptr(), n_p.data_ptr(), points.shape[0], off.data_ptr(),
-        code.data_ptr(), rank.data_ptr(), sorted_pts.data_ptr(),
-        cuda_lib.stream_ptr(points.device)))
-    grid_scatter.launches += 1
+    _SCATTER(points.data_ptr(), n_p.data_ptr(), points.shape[0],
+             off.data_ptr(), code.data_ptr(), rank.data_ptr(),
+             sorted_pts.data_ptr(), cuda_lib.stream_ptr(points.device))
     return sorted_pts
-
-
-grid_scatter.launches = 0
 
 
 def grid_build(points, n_p, levels: int, cell: float):
@@ -248,30 +258,20 @@ def grid_query(queries, n_q, sorted_pts, off, k: int, levels: int,
                cell: float):
     """K7 proper: the first ``n_q`` (0-d int32 on the card) ``queries``
     (Q,3) searched in :func:`grid_build`'s structure. Returns (dists
-    (Q,k) f32, idx (Q,k) int64)."""
+    (Q,k) f32, idx (Q,k) int64). Its launches count in
+    ``knn_grid.launches``."""
     dev = queries.device
     Q = queries.shape[0]
     dists = torch.empty((Q, k), dtype=torch.float32, device=dev)
     idx = torch.empty((Q, k), dtype=torch.int64, device=dev)
     queries = queries.contiguous()
-    cuda_lib.check("knn_grid", cuda_lib.lib().dfb_knn_grid_query(
-        queries.data_ptr(), n_q.data_ptr(), Q, sorted_pts.data_ptr(),
-        off.data_ptr(), levels, float(cell), k, dists.data_ptr(),
-        idx.data_ptr(), cuda_lib.stream_ptr(dev)))
-    knn_grid.launches += 1
+    _QUERY(queries.data_ptr(), n_q.data_ptr(), Q, sorted_pts.data_ptr(),
+           off.data_ptr(), levels, float(cell), k, dists.data_ptr(),
+           idx.data_ptr(), cuda_lib.stream_ptr(dev))
     return dists, idx
 
 
-def knn_grid(queries, points, k: int, n_q, n_p, extent: float,
-             cell: float | None = None):
-    """k nearest of the first ``n_p`` ``points`` (P,3) for each of the
-    first ``n_q`` ``queries`` (Q,3), lattice coordinates on [0, extent)³
-    (module docstring): (dists (Q,k) f32, idx (Q,k) int64). ``cell`` (a
-    power of two) overrides :func:`leaf_cell`'s, for the tools.
-
-    A CPU tensor takes the plain twin (which reads the counts on the
-    host); a CUDA tensor launches the kernel, which reads them on the
-    card, or raises."""
+def _check(queries, points, k: int, n_q, n_p, extent: float, cell=None):
     if not 1 <= k <= MAX_K:
         raise ValueError(f"knn_grid: k = {k}, need 1..{MAX_K}")
     for name, t in (("queries", queries), ("points", points)):
@@ -280,12 +280,26 @@ def knn_grid(queries, points, k: int, n_q, n_p, extent: float,
                              f"{tuple(t.shape)} {t.dtype}")
     if queries.device != points.device:
         raise ValueError("knn_grid: queries and points on two devices")
+
+
+def _twin(queries, points, k: int, n_q, n_p, extent: float, cell=None):
+    """The CPU's knn_grid: the plain twin, which reads the counts on the
+    host."""
+    cell = leaf_cell(extent) if cell is None else cell
+    return knn_grid_ref(queries, points, k, n_q, n_p,
+                        grid_levels(extent, cell), cell)
+
+
+@cuda_lib.wrapper(_QUERY, twin=_twin, check=_check)
+def knn_grid(queries, points, k: int, n_q, n_p, extent: float,
+             cell: float | None = None):
+    """k nearest of the first ``n_p`` ``points`` (P,3) for each of the
+    first ``n_q`` ``queries`` (Q,3), lattice coordinates on [0, extent)³
+    (module docstring): (dists (Q,k) f32, idx (Q,k) int64). ``cell`` (a
+    power of two) overrides :func:`leaf_cell`'s, for the tools. The kernel
+    reads the counts on the card."""
     cell = leaf_cell(extent) if cell is None else cell
     levels = grid_levels(extent, cell)
-    if queries.device.type == "cpu":
-        return knn_grid_ref(queries, points, k, n_q, n_p, levels, cell)
-    if queries.device.type != "cuda":
-        raise ValueError(f"knn_grid: unsupported device {queries.device}")
     dev = queries.device
     if max(queries.shape[0], points.shape[0]) * max(k, 3) >= 2**31:
         raise ValueError(f"knn_grid: {queries.shape[0]} queries or "
@@ -296,16 +310,8 @@ def knn_grid(queries, points, k: int, n_q, n_p, extent: float,
                       cell)
 
 
-knn_grid.launches = 0
-
-
 def kernel_info(k: int = 4) -> dict:
-    """What the card makes of the query kernel for ``k``: registers and
-    local (stack) bytes per thread, threads per CTA, CTAs per SM and
-    static shared bytes. Needs the card."""
-    keys = ("registers", "local_bytes", "threads", "ctas_per_sm",
-            "static_smem", "grid")
-    buf = (ctypes.c_int * len(keys))()
-    cuda_lib.check("knn_grid info",
-                   cuda_lib.lib().dfb_knn_grid_query_info(k, buf))
-    return dict(zip(keys, buf))
+    """What the card makes of the query kernel for ``k``, as
+    :func:`cuda_lib.info` reads it, with static shared bytes. Needs the
+    card."""
+    return cuda_lib.info(_QUERY_INFO, k)

@@ -15,11 +15,10 @@ and any element strides (the stride-2 extraction hands it
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from . import cuda_lib
+from .cuda_lib import BUF, FLOAT, INT, PTR
 
 
 def mc_case_cross_ref(vol: torch.Tensor, level: float) -> torch.Tensor:
@@ -76,15 +75,19 @@ def check_args(vol: torch.Tensor) -> int:
     return last
 
 
-def mc_case_cross(vol: torch.Tensor, level: float) -> torch.Tensor:
-    """(X,Y,Z) f32 → (X,Y,Z) int32 case/crossing lattice.
+# (vol, out, X, Y, Z, vol's element strides x/y/z, 1 if the storage holds
+#  an element past the view's last one, level, stream)
+_LAUNCH = cuda_lib.KERNELS.entry(
+    "dfb_mc_case_cross", PTR, PTR, INT, INT, INT, INT, INT, INT, INT, FLOAT,
+    PTR, kernel="mc_case_cross_kernel")
+# (instantiation, out[6])
+_INFO = cuda_lib.KERNELS.entry("dfb_mc_case_cross_info", INT, BUF)
 
-    A CPU tensor takes the plain twin; a CUDA tensor launches the kernel,
-    which reads a strided view where it lies, or raises."""
-    if vol.device.type == "cpu":
-        return mc_case_cross_ref(vol, level)
-    if vol.device.type != "cuda":
-        raise ValueError(f"mc_case_cross: unsupported device {vol.device}")
+
+@cuda_lib.wrapper(_LAUNCH, twin=mc_case_cross_ref)
+def mc_case_cross(vol: torch.Tensor, level: float) -> torch.Tensor:
+    """(X,Y,Z) f32 → (X,Y,Z) int32 case/crossing lattice. The kernel reads
+    a strided view where it lies."""
     last = check_args(vol)
     out = torch.empty(vol.shape, dtype=torch.int32, device=vol.device)
     X, Y, Z = vol.shape
@@ -93,16 +96,9 @@ def mc_case_cross(vol: torch.Tensor, level: float) -> torch.Tensor:
     # stride-2 loads read it)
     tail = int(strides[2] == 2 and vol.untyped_storage().nbytes()
                > (vol.storage_offset() + last + 1) * vol.element_size())
-    err = cuda_lib.lib().dfb_mc_case_cross(
-        vol.data_ptr(), out.data_ptr(), X, Y, Z, *strides, tail,
-        float(level), cuda_lib.stream_ptr(vol.device),
-    )
-    cuda_lib.check("mc_case_cross", err)
-    mc_case_cross.launches += 1
+    _LAUNCH(vol.data_ptr(), out.data_ptr(), X, Y, Z, *strides, tail,
+            float(level), cuda_lib.stream_ptr(vol.device))
     return out
-
-
-mc_case_cross.launches = 0
 
 
 # K1's instantiations, in the order of csrc/mc_case_cross.cu:Mode
@@ -112,16 +108,8 @@ KERNELS = ("vec4", "stride2", "scalar")
 def kernel_info() -> dict:
     """What the card makes of each of K1's instantiations (``vec4``:
     16-byte loads and stores; ``stride2``: two 16-byte loads a run of the
-    stride-2 view; ``scalar``: element loads and stores): registers and
-    local (spill) bytes per thread, threads per CTA, CTAs per SM
-    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and static shared
-    bytes. Needs the card."""
-    keys = ("registers", "local_bytes", "threads", "ctas_per_sm",
-            "static_smem", "grid")
-    out = {}
-    for which, name in enumerate(KERNELS):
-        buf = (ctypes.c_int * len(keys))()
-        cuda_lib.check("mc_case_cross info",
-                       cuda_lib.lib().dfb_mc_case_cross_info(which, buf))
-        out[name] = dict(zip(keys, buf))
-    return out
+    stride-2 view; ``scalar``: element loads and stores), as
+    :func:`cuda_lib.info` reads it, with static shared bytes. Needs the
+    card."""
+    return {name: cuda_lib.info(_INFO, which)
+            for which, name in enumerate(KERNELS)}

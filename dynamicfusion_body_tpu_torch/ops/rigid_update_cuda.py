@@ -15,11 +15,10 @@ and written, live read once); its note says how it streams them.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from . import cuda_lib
+from .cuda_lib import BUF, FLOAT, INT, PTR
 from .dualquat import dq_transform_point
 from .interp import trilinear
 
@@ -83,6 +82,15 @@ def _vec(values, weights) -> int:
     return 4 if ok else 1
 
 
+# (vals, wts, live, dq, X, Y, Z, rx, ry, rz, x_offset, tdist, wmax,
+#  vals_out, wts_out, vec (4: float4, 1: scalar), stream)
+_LAUNCH = cuda_lib.KERNELS.entry(
+    "dfb_rigid_update", PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, INT, INT,
+    FLOAT, FLOAT, PTR, PTR, INT, PTR, kernel="rigid_update_kernel")
+# (vec, out[6])
+_INFO = cuda_lib.KERNELS.entry("dfb_rigid_update_info", INT, BUF)
+
+
 def launch(values, weights, live, lw_dq, tdist: float, wmax: float,
            x_offset: int, vec: int):
     """K8 on CUDA tensors that passed :func:`check_args`, with the ``vec``
@@ -92,44 +100,28 @@ def launch(values, weights, live, lw_dq, tdist: float, wmax: float,
     out_w = torch.empty_like(weights)
     X, Y, Z = values.shape
     rx, ry, rz = live.shape
-    cuda_lib.check("rigid_update", cuda_lib.lib().dfb_rigid_update(
-        values.data_ptr(), weights.data_ptr(), live.data_ptr(),
-        lw_dq.data_ptr(), X, Y, Z, rx, ry, rz, int(x_offset), float(tdist),
-        float(wmax), out_v.data_ptr(), out_w.data_ptr(), vec,
-        cuda_lib.stream_ptr(values.device)))
-    rigid_update.launches += 1
+    _LAUNCH(values.data_ptr(), weights.data_ptr(), live.data_ptr(),
+            lw_dq.data_ptr(), X, Y, Z, rx, ry, rz, int(x_offset),
+            float(tdist), float(wmax), out_v.data_ptr(), out_w.data_ptr(),
+            vec, cuda_lib.stream_ptr(values.device))
     return out_v, out_w
 
 
+@cuda_lib.wrapper(
+    _LAUNCH, twin=rigid_update_ref,
+    check=lambda v, w, live, dq, *_, **__: check_args(v, w, live, dq))
 def rigid_update(values, weights, live, lw_dq, tdist: float,
                  wmax: float = 100.0, x_offset: int = 0):
     """The rigid update of ``values``/``weights`` (X,Y,Z) by ``live``
     (rx,ry,rz) under the DQ ``lw_dq`` (8,), the block's first plane at
     global x ``x_offset``. Returns new (values, weights): the inputs are
-    not written.
-
-    A CPU tensor takes the plain twin; a CUDA tensor launches the kernel
-    or raises."""
-    check_args(values, weights, live, lw_dq)
-    if values.device.type == "cpu":
-        return rigid_update_ref(values, weights, live, lw_dq, tdist, wmax,
-                                x_offset)
-    if values.device.type != "cuda":
-        raise ValueError(f"rigid_update: unsupported device {values.device}")
+    not written."""
     vec = _vec(values, weights)
     return launch(values, weights, live, lw_dq, tdist, wmax, x_offset, vec)
 
 
-rigid_update.launches = 0
-
-
 def kernel_info(vec: int = 4) -> dict:
-    """What the card makes of the ``vec`` instantiation: registers and local
-    (spill) bytes per thread, threads per CTA, CTAs per SM and static
-    shared bytes. Needs the card."""
-    keys = ("registers", "local_bytes", "threads", "ctas_per_sm",
-            "static_smem")
-    buf = (ctypes.c_int * 6)()
-    cuda_lib.check("rigid_update info",
-                   cuda_lib.lib().dfb_rigid_update_info(vec, buf))
-    return dict(zip(keys, buf))
+    """What the card makes of the ``vec`` instantiation, as
+    :func:`cuda_lib.info` reads it, with static shared bytes. Needs the
+    card."""
+    return cuda_lib.info(_INFO, vec, last=("static_smem",))

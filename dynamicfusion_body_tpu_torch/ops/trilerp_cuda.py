@@ -49,17 +49,18 @@ tests); the TSDF update asks for none.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from . import cuda_lib
 from .compwise import dq_normalize8_c, dq_point_c
+from .cuda_lib import BUF, FLOAT, INT, LLONG, PTR
 from .interp import trilinear_c, trilinear_index
 
 # brick edges K2 and K3 take on the card: each thread owns a voxel pair,
 # 256 threads a brick of at most 512 voxels
 KERNEL_BRICKS = (2, 4, 6, 8)
+# the last two fields of the _info entries of K2, K3 and K6
+_GRID_SMEM = ("grid", "dynamic_smem")
 
 
 def _axis_windowred(v, axis, red):
@@ -232,6 +233,19 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+# (live, node_dq, cand, sel, selw, lw, mip_mn, mip_mx, use_mip, tdist, rx,
+#  ry, rz, vy, vz, brick, NB, C, k, M (nodes), vals, valid, wx, wy, wz (all
+#  three null: no coordinates), stream)
+_K2 = cuda_lib.KERNELS.entry(
+    "dfb_warp_trilerp_cached", PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, INT,
+    FLOAT, INT, INT, INT, INT, INT, INT, INT, INT, INT, INT,
+    PTR, PTR, PTR, PTR, PTR, PTR, kernel="warp_trilerp_cached_kernel")
+# (brick, k, out[6])
+_K2_INFO = cuda_lib.KERNELS.entry("dfb_warp_trilerp_cached_info", INT, INT,
+                                  BUF)
+
+
+@cuda_lib.wrapper(_K2, twin=warp_trilerp_bricks_cached_ref)
 def warp_trilerp_bricks_cached(live, node_dq, cand, sel, selw, lw_dq,
                                brick: int = 8, tdist=None, live_mip=None,
                                vol_shape=None, coords: bool = True):
@@ -246,16 +260,7 @@ def warp_trilerp_bricks_cached(live, node_dq, cand, sel, selw, lw_dq,
     certified bricks emit exact constants; that needs ``vol_shape`` equal
     to ``live.shape``. Returns (vals, valid, wx, wy, wz), each (NB, V);
     without ``coords`` the kernel writes no coordinates and wx, wy, wz are
-    None. On the card ``brick`` is one of ``KERNEL_BRICKS``.
-
-    A CPU tensor takes the plain twin; a CUDA tensor launches the kernel
-    or raises."""
-    if live.device.type == "cpu":
-        return warp_trilerp_bricks_cached_ref(
-            live, node_dq, cand, sel, selw, lw_dq, brick, tdist, live_mip,
-            vol_shape, coords)
-    if live.device.type != "cuda":
-        raise ValueError(f"warp_trilerp_bricks_cached: device {live.device}")
+    None. On the card ``brick`` is one of ``KERNEL_BRICKS``."""
     rx, ry, rz = live.shape
     NB, C = cand.shape
     V = brick ** 3
@@ -291,22 +296,16 @@ def warp_trilerp_bricks_cached(live, node_dq, cand, sel, selw, lw_dq,
     vals = torch.empty((NB, V), dtype=f32, device=dev)
     valid = torch.empty((NB, V), dtype=torch.bool, device=dev)
     wx, wy, wz = _coord_outputs(coords, (NB, V), dev)
-    err = cuda_lib.lib().dfb_warp_trilerp_cached(
-        live_c.data_ptr(), dq_c.data_ptr(), cand_c.data_ptr(),
-        sel_c.data_ptr(), selw_c.data_ptr(), lw_c.data_ptr(),
-        mn.data_ptr(), mx.data_ptr(), int(use_mip),
-        float(tdist) if use_mip else 0.0, rx, ry, rz, vol_shape[1],
-        vol_shape[2], brick, NB, C, k, M,
+    _K2(live_c.data_ptr(), dq_c.data_ptr(), cand_c.data_ptr(),
+        sel_c.data_ptr(), selw_c.data_ptr(), lw_c.data_ptr(), mn.data_ptr(),
+        mx.data_ptr(), int(use_mip), float(tdist) if use_mip else 0.0, rx,
+        ry, rz, vol_shape[1], vol_shape[2], brick, NB, C, k, M,
         vals.data_ptr(), valid.data_ptr(), _ptr(wx), _ptr(wy), _ptr(wz),
-        cuda_lib.stream_ptr(dev),
-    )
-    cuda_lib.check("warp_trilerp_bricks_cached", err)
-    warp_trilerp_bricks_cached.launches += 1
+        cuda_lib.stream_ptr(dev))
     warp_trilerp_bricks_cached.coord_launches += int(coords)
     return vals, valid, wx, wy, wz
 
 
-warp_trilerp_bricks_cached.launches = 0
 # the launches that wrote wx, wy, wz
 warp_trilerp_bricks_cached.coord_launches = 0
 
@@ -332,6 +331,18 @@ def warp_trilerp_bricks_ref(live, node_pos, node_w, active, node_dq, cand,
     return vals, valid, wi, wx, wy, wz
 
 
+# (live, node_pos, node_w, active (int32), node_dq, cand, lw, rx, ry, rz,
+#  vy, vz, brick, NB, C, k, M (nodes), vals, valid, wi, wx, wy, wz (all
+#  three null: no coordinates), stream)
+_K3 = cuda_lib.KERNELS.entry(
+    "dfb_warp_trilerp_bricks", PTR, PTR, PTR, PTR, PTR, PTR, PTR,
+    INT, INT, INT, INT, INT, INT, INT, INT, INT, INT,
+    PTR, PTR, PTR, PTR, PTR, PTR, PTR, kernel="warp_trilerp_bricks_kernel")
+# (C, out[6])
+_K3_INFO = cuda_lib.KERNELS.entry("dfb_warp_trilerp_bricks_info", INT, BUF)
+
+
+@cuda_lib.wrapper(_K3, twin=warp_trilerp_bricks_ref)
 def warp_trilerp_bricks(live, node_pos, node_w, active, node_dq, cand,
                         lw_dq, vol_shape=None, brick: int = 8, k: int = 3,
                         coords: bool = True):
@@ -348,16 +359,7 @@ def warp_trilerp_bricks(live, node_pos, node_w, active, node_dq, cand,
     (NB, V); valid (bool) is "inside the live volume" — the JAX kernel's
     escape output has no counterpart. Without ``coords`` the kernel writes
     no coordinates and wx, wy, wz are None. On the card ``brick`` is one
-    of ``KERNEL_BRICKS``.
-
-    A CPU tensor takes the plain twin; a CUDA tensor launches the kernel
-    or raises."""
-    if live.device.type == "cpu":
-        return warp_trilerp_bricks_ref(live, node_pos, node_w, active,
-                                       node_dq, cand, lw_dq, vol_shape,
-                                       brick, k, coords)
-    if live.device.type != "cuda":
-        raise ValueError(f"warp_trilerp_bricks: device {live.device}")
+    of ``KERNEL_BRICKS``."""
     rx, ry, rz = live.shape
     NB, C = cand.shape
     V = brick ** 3
@@ -381,41 +383,26 @@ def warp_trilerp_bricks(live, node_pos, node_w, active, node_dq, cand,
                 for _ in range(2))
     valid = torch.empty((NB, V), dtype=torch.bool, device=dev)
     wx, wy, wz = _coord_outputs(coords, (NB, V), dev)
-    err = cuda_lib.lib().dfb_warp_trilerp_bricks(
-        *(t.data_ptr() for t in ins), rx, ry, rz, vol_shape[1], vol_shape[2],
-        brick, NB, C, k, M, vals.data_ptr(), valid.data_ptr(),
-        wi.data_ptr(), _ptr(wx), _ptr(wy), _ptr(wz), cuda_lib.stream_ptr(dev),
-    )
-    cuda_lib.check("warp_trilerp_bricks", err)
-    warp_trilerp_bricks.launches += 1
+    _K3(*(t.data_ptr() for t in ins), rx, ry, rz, vol_shape[1],
+        vol_shape[2], brick, NB, C, k, M, vals.data_ptr(), valid.data_ptr(),
+        wi.data_ptr(), _ptr(wx), _ptr(wy), _ptr(wz), cuda_lib.stream_ptr(dev))
     warp_trilerp_bricks.coord_launches += int(coords)
     return vals, valid, wi, wx, wy, wz
 
 
-warp_trilerp_bricks.launches = 0
 # the launches that wrote wx, wy, wz
 warp_trilerp_bricks.coord_launches = 0
 
 
 def kernel_info(brick: int = 8, k: int = 3, C: int = 16) -> dict:
     """What the card makes of K2 (at ``brick``, ``k``) and of the K3
-    instantiation that ``C`` candidates take: registers and local (spill)
-    bytes per thread, threads per CTA, CTAs per SM
-    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), the persistent
-    grid and the dynamic shared bytes. Needs the card."""
-    keys = ("registers", "local_bytes", "threads", "ctas_per_sm", "grid",
-            "dynamic_smem")
-    out = {}
-    for name, call in (
-            ("warp_trilerp_bricks_cached",
-             lambda buf: cuda_lib.lib().dfb_warp_trilerp_cached_info(
-                 brick, k, buf)),
-            ("warp_trilerp_bricks",
-             lambda buf: cuda_lib.lib().dfb_warp_trilerp_bricks_info(C, buf))):
-        buf = (ctypes.c_int * len(keys))()
-        cuda_lib.check(f"{name} info", call(buf))
-        out[name] = dict(zip(keys, buf))
-    return out
+    instantiation that ``C`` candidates take, as :func:`cuda_lib.info`
+    reads it, with the persistent grid and the dynamic shared bytes.
+    Needs the card."""
+    return {"warp_trilerp_bricks_cached": cuda_lib.info(
+                _K2_INFO, brick, k, last=_GRID_SMEM),
+            "warp_trilerp_bricks": cuda_lib.info(_K3_INFO, C,
+                                                 last=_GRID_SMEM)}
 
 
 def trilerp_bricks_supported(shape, brick: int = 8) -> bool:
@@ -426,10 +413,8 @@ def trilerp_bricks_supported(shape, brick: int = 8) -> bool:
 
 
 def _trilerp_args(name, live, wx, wy, wz):
-    """K4's and K6's inputs checked (a 3-D volume on the card, coordinates
-    of one shape) and made contiguous f32: (live, [wx, wy, wz])."""
-    if live.device.type != "cuda":
-        raise ValueError(f"{name}: device {live.device}")
+    """K4's and K6's inputs checked (a 3-D volume, coordinates of one
+    shape) and made contiguous f32: (live, [wx, wy, wz])."""
     if not trilerp_bricks_supported(live.shape):
         raise ValueError(f"{name}: live {tuple(live.shape)} is not a 3-D "
                          "volume")
@@ -447,33 +432,28 @@ def trilerp_bricks_ref(live, wx, wy, wz):
     return vals, valid, torch.zeros_like(valid)
 
 
+# (live, wx, wy, wz, n, rx, ry, rz, vals, valid, stream)
+_K4 = cuda_lib.KERNELS.entry(
+    "dfb_trilerp_bricks", PTR, PTR, PTR, PTR, LLONG, INT, INT, INT, PTR, PTR,
+    PTR, kernel="trilerp_bricks_kernel")
+
+
+@cuda_lib.wrapper(_K4, twin=trilerp_bricks_ref)
 def trilerp_bricks(live, wx, wy, wz):
     """K4: sample ``live`` (rx, ry, rz) at the coordinates wx/wy/wz (any one
     shape, e.g. the (NB, V) brick rows). Returns (vals f32, valid bool,
     escaped bool) of that shape; valid is "inside the live volume" and
     escaped is all False (nothing is staged; it is kept so the JAX
     signature returns the same triple). The JAX arguments ``group``,
-    ``precise`` and ``interpret`` have no counterpart.
-
-    A CPU tensor takes the plain twin; a CUDA tensor launches the kernel
-    or raises."""
-    if live.device.type == "cpu":
-        return trilerp_bricks_ref(live, wx, wy, wz)
+    ``precise`` and ``interpret`` have no counterpart."""
     live_c, coords = _trilerp_args("trilerp_bricks", live, wx, wy, wz)
     rx, ry, rz = live.shape
     dev = live.device
     vals = torch.empty(wx.shape, dtype=torch.float32, device=dev)
     valid = torch.empty(wx.shape, dtype=torch.bool, device=dev)
-    err = cuda_lib.lib().dfb_trilerp_bricks(
-        live_c.data_ptr(), *(c.data_ptr() for c in coords), wx.numel(),
-        rx, ry, rz, vals.data_ptr(), valid.data_ptr(),
-        cuda_lib.stream_ptr(dev))
-    cuda_lib.check("trilerp_bricks", err)
-    trilerp_bricks.launches += 1
+    _K4(live_c.data_ptr(), *(c.data_ptr() for c in coords), wx.numel(), rx,
+        ry, rz, vals.data_ptr(), valid.data_ptr(), cuda_lib.stream_ptr(dev))
     return vals, valid, torch.zeros_like(valid)
-
-
-trilerp_bricks.launches = 0
 
 
 ABLATION_MODES = ("loads", "weights", "full")
@@ -559,6 +539,44 @@ def trilerp_ablation_ref(live, wx, wy, wz, mode: str):
     return out
 
 
+def _check_ablation(live, wx, wy, wz, mode: str, threads: int = 256,
+                    row_map=None) -> None:
+    _check_mode(mode)
+    if threads not in ABLATION_THREADS:
+        raise ValueError(f"trilerp_ablation: {threads} threads per block is "
+                         f"not one of {ABLATION_THREADS}")
+    rows, _ = ablation_rows(wx.shape)
+    if row_map is not None and mode == "weights":
+        raise ValueError("trilerp_ablation: the weights mode stages no box "
+                         "and writes no row_map")
+    if row_map is not None and (
+            tuple(row_map.shape) != (rows,) or row_map.dtype != torch.uint8
+            or row_map.device != live.device
+            or not row_map.is_contiguous()):
+        raise ValueError(f"trilerp_ablation: row_map must be a contiguous "
+                         f"({rows},) uint8 tensor on {live.device}")
+
+
+def _ablation_twin(live, wx, wy, wz, mode: str, threads: int = 256,
+                   row_map=None):
+    """The CPU's trilerp_ablation: the plain twin, and ``row_map`` the
+    predicate."""
+    if row_map is not None:
+        row_map.copy_(trilerp_box_rows(live.shape, wx, wy, wz)[2])
+    return trilerp_ablation_ref(live, wx, wy, wz, mode)
+
+
+# (mode, threads, live, wx, wy, wz, n, V (samples a row), rx, ry, rz, out,
+#  row_map (null: none), stream)
+_K6 = cuda_lib.KERNELS.entry(
+    "dfb_trilerp_ablation", INT, INT, PTR, PTR, PTR, PTR, LLONG, INT, INT,
+    INT, INT, PTR, PTR, PTR, kernel="trilerp_ablation_kernel")
+# (mode, threads, V, out[6])
+_K6_INFO = cuda_lib.KERNELS.entry("dfb_trilerp_ablation_info", INT, INT, INT,
+                                  BUF)
+
+
+@cuda_lib.wrapper(_K6, twin=_ablation_twin, check=_check_ablation)
 def trilerp_ablation(live, wx, wy, wz, mode: str, threads: int = 256,
                      row_map=None):
     """K6: one of K4's parts at the coordinates wx/wy/wz (any one shape)
@@ -572,62 +590,30 @@ def trilerp_ablation(live, wx, wy, wz, mode: str, threads: int = 256,
     taps from global memory. Returns f32 of the coordinates' shape.
     ``row_map``, a (rows,) uint8 tensor on the volume's device, receives
     1 for each staged row and 0 for the others (``loads`` and ``full``
-    only: ``weights`` stages nothing). The TPU kernel's bf16 pass count
-    and tent weights have no counterpart (f32, no matrix unit).
-
-    A CPU tensor takes the plain twin (and ``row_map`` the predicate); a
-    CUDA tensor launches the kernel or raises."""
-    _check_mode(mode)
-    if threads not in ABLATION_THREADS:
-        raise ValueError(f"trilerp_ablation: {threads} threads per block is "
-                         f"not one of {ABLATION_THREADS}")
-    rows, V = ablation_rows(wx.shape)
-    if row_map is not None and mode == "weights":
-        raise ValueError("trilerp_ablation: the weights mode stages no box "
-                         "and writes no row_map")
-    if row_map is not None and (
-            tuple(row_map.shape) != (rows,) or row_map.dtype != torch.uint8
-            or row_map.device != live.device
-            or not row_map.is_contiguous()):
-        raise ValueError(f"trilerp_ablation: row_map must be a contiguous "
-                         f"({rows},) uint8 tensor on {live.device}")
-    if live.device.type == "cpu":
-        if row_map is not None:
-            row_map.copy_(trilerp_box_rows(live.shape, wx, wy, wz)[2])
-        return trilerp_ablation_ref(live, wx, wy, wz, mode)
+    only: ``weights`` stages nothing; on the CPU it receives the
+    predicate). The TPU kernel's bf16 pass count and tent weights have no
+    counterpart (f32, no matrix unit)."""
     live_c, coords = _trilerp_args("trilerp_ablation", live, wx, wy, wz)
     rx, ry, rz = live.shape
     if ry * rz >= 2 ** 31 or max(live.shape) > 2 ** 22:
         raise ValueError(f"trilerp_ablation: live {tuple(live.shape)}: the "
                          "kernel takes planes of fewer than 2^31 cells and "
                          "axes of at most 2^22")
+    _, V = ablation_rows(wx.shape)
     dev = live.device
     out = torch.empty(wx.shape, dtype=torch.float32, device=dev)
-    err = cuda_lib.lib().dfb_trilerp_ablation(
-        ABLATION_MODES.index(mode), threads, live_c.data_ptr(),
+    _K6(ABLATION_MODES.index(mode), threads, live_c.data_ptr(),
         *(c.data_ptr() for c in coords), wx.numel(), V, rx, ry, rz,
         out.data_ptr(), _ptr(row_map), cuda_lib.stream_ptr(dev))
-    cuda_lib.check("trilerp_ablation", err)
-    trilerp_ablation.launches += 1
     return out
-
-
-trilerp_ablation.launches = 0
 
 
 def ablation_kernel_info(V: int = ABLATION_ROW) -> dict:
     """What the card makes of each K6 instantiation, {(mode, threads):
-    info} at rows of ``V`` samples: registers and local (spill) bytes per
-    thread, threads per CTA, CTAs per SM, the persistent grid and the
-    dynamic shared bytes. Needs the card."""
-    keys = ("registers", "local_bytes", "threads", "ctas_per_sm", "grid",
-            "dynamic_smem")
-    out = {}
-    for mode in ABLATION_MODES:
-        for threads in ABLATION_THREADS:
-            buf = (ctypes.c_int * len(keys))()
-            cuda_lib.check("trilerp_ablation info",
-                           cuda_lib.lib().dfb_trilerp_ablation_info(
-                               ABLATION_MODES.index(mode), threads, V, buf))
-            out[mode, threads] = dict(zip(keys, buf))
-    return out
+    info} at rows of ``V`` samples, as :func:`cuda_lib.info` reads it,
+    with the persistent grid and the dynamic shared bytes. Needs the
+    card."""
+    return {(mode, threads): cuda_lib.info(
+                _K6_INFO, ABLATION_MODES.index(mode), threads, V,
+                last=_GRID_SMEM)
+            for mode in ABLATION_MODES for threads in ABLATION_THREADS}

@@ -60,8 +60,7 @@ import time
 import numpy as np
 import torch
 
-from ..ops import (fusion_cuda, knn_grid_cuda, mc_cuda, rigid_update_cuda,
-                   trilerp_cuda)
+from ..ops import cuda_lib
 from ..utils.profiling import device_trace
 
 # the card's peaks (H100 SXM data sheet, dense, at 700 W): HBM bytes/s and
@@ -159,22 +158,6 @@ def live_sectors(shape, coords) -> int:
     if pad:
         tapped = torch.cat([tapped, tapped.new_zeros(pad)])
     return int(torch.sum(tapped.reshape(-1, 8).any(1)))
-
-
-# the port's kernel wrappers (each counts its launches in ``.launches``)
-# and the CUDA kernel each one launches
-PORT_KERNELS = {
-    mc_cuda.mc_case_cross: "mc_case_cross_kernel",
-    trilerp_cuda.warp_trilerp_bricks_cached: "warp_trilerp_cached_kernel",
-    trilerp_cuda.warp_trilerp_bricks: "warp_trilerp_bricks_kernel",
-    trilerp_cuda.trilerp_bricks: "trilerp_bricks_kernel",
-    trilerp_cuda.trilerp_ablation: "trilerp_ablation_kernel",
-    fusion_cuda.fuse_depth_multi: "fuse_depth_multi_kernel",
-    knn_grid_cuda.knn_grid: "knn_grid_query_kernel",
-    knn_grid_cuda.grid_bin: "knn_grid_bin_kernel",
-    knn_grid_cuda.grid_scatter: "knn_grid_scatter_kernel",
-    rigid_update_cuda.rigid_update: "rigid_update_kernel",
-}
 
 
 def graph_ms(fn, reps: int = GRAPH_REPS) -> float:
@@ -280,13 +263,14 @@ class Timer:
         if self.trace is not None:
             with device_trace(os.path.join(self.trace, name),
                               cuda=self.cuda) as tr:
-                before = {k: k.launches for k in PORT_KERNELS}
+                kernels = cuda_lib.wrappers()
+                before = {k: k.launches for k in kernels}
                 t0 = time.perf_counter()
                 fn()
                 self.sync()
                 traced = (time.perf_counter() - t0) * 1e3
                 launched = {kn: k.launches - before[k]
-                            for k, kn in PORT_KERNELS.items()}
+                            for k, kn in kernels.items()}
             dev_ms, busy, top, lost = trace_summary(tr, row["wall_ms"],
                                                     launched)
             row.update(device_ms=dev_ms, busy=busy, traced_ms=traced,

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from dynamicfusion_body_tpu_torch.ops import cuda_lib
 from dynamicfusion_body_tpu_torch.ops.trilerp_cuda import (
     ABLATION_MODES, ABLATION_THREADS)
 from dynamicfusion_body_tpu_torch.tools import (
@@ -190,13 +191,13 @@ def test_make_bend_copy_matches_suite(rng):
 
 
 def test_port_kernel_names_are_cuda_symbols():
-    """Every kernel name the traced rows check against is a __global__
-    function of csrc/*.cu, so a renamed kernel cannot make every trace
-    look incomplete."""
+    """The kernel names the traced rows check against, one for each
+    wrapper as its C entry's declaration names it, are the __global__
+    functions of csrc/*.cu, one each: a renamed kernel cannot make every
+    trace look incomplete, nor a new one go undeclared."""
     csrc = Path(_timing.__file__).resolve().parent.parent / "csrc"
     decl = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\("
                       r"(?:[^()]|\([^()]*\))*\)\s+)?(\w+)\s*\(")
     names = {m.group(1) for src in csrc.glob("*.cu")
              for m in decl.finditer(src.read_text())}
-    assert len(names) == 10, names
-    assert set(_timing.PORT_KERNELS.values()) == names
+    assert sorted(cuda_lib.wrappers().values()) == sorted(names)
