@@ -76,9 +76,11 @@ Phases, each of which raises on failure (exit code 1):
      vertices cover is printed beside the score);
   10. the ICP branch (useICP=True) at 256³ with the first 3 views: a
      finite volume, correspondences, the recovered pose, K7's bin,
-     scatter and query launches once a search and K8's once a later
-     view; K7 (knn_grid) on the last
-     view's meshes against its plain twin, 0 unequal slots, timed;
+     scatter and query launches and K9's warp and pick once a search,
+     and K8's once a later view; K7 (knn_grid) on the last
+     view's meshes against its plain twin, 0 unequal slots, and K9's
+     warp and pick there against the composition they replace, 0
+     unequal elements, each timed;
   10b. K8 (rigid_update) at 512³ (tools/profile_rigid_update.py): config
      6's view 0 fused alone updated by view 1 fused alone, under the
      identity and the ICP's calibration error (0.5° and 1.5 voxels), 0
@@ -2150,14 +2152,22 @@ def phase_config6(torch, dev, verts, faces, maps, lws):
 def phase_icp(torch, dev, depths, lws):
     """The ICP branch at RES³ on the first ICP_VIEWS views: a finite
     volume, correspondences, the recovered pose, K7's three launches
-    (bin, scatter, query) once a search, 3 searches a later view, and one
-    K8 launch (the rigid update) a later view. One
+    (bin, scatter, query) and K9's two (warp, pick) once a search, 3
+    searches a later view, and one K8 launch (the rigid update) a later
+    view. One
     search on the last view's meshes (view 0's canonical mesh at the
     solved pose against the last live mesh) is held to K7's plain twin
-    (0 unequal slots) and timed. Returns (K7's table row, its query
-    launches on the branch)."""
+    (0 unequal slots) and to K9's (0 unequal elements of the warped
+    vertices and of corr, valid and best_cost), and timed. Returns ({K7's,
+    K9's warp's and K9's pick's table rows}, {their launches on the
+    branch: K7's query's, K9's two})."""
+    from dynamicfusion_body_tpu_torch.ops import icp_pick_cuda as K9
     from dynamicfusion_body_tpu_torch.ops import knn_grid_cuda as K7
-    from dynamicfusion_body_tpu_torch.ops.dualquat import dq_transform_point
+    from dynamicfusion_body_tpu_torch.ops.dualquat import (
+        dq_transform_normal, dq_transform_point)
+    from dynamicfusion_body_tpu_torch.pipeline.correspondence import (
+        _pick, rigid_correspondences_twin)
+    from dynamicfusion_body_tpu_torch.tools import profile_icp_pick
     from dynamicfusion_body_tpu_torch.ops.fusion_cuda import fuse_depth_multi
     from dynamicfusion_body_tpu_torch.ops.mc_cuda import mc_case_cross
     from dynamicfusion_body_tpu_torch.ops.rigid_update_cuda import (
@@ -2177,7 +2187,8 @@ def phase_icp(torch, dev, depths, lws):
 
     fus.solve = keep_live
     kernels = (fuse_depth_multi, mc_case_cross, K7.grid_bin,
-               K7.grid_scatter, K7.knn_grid, rigid_update)
+               K7.grid_scatter, K7.knn_grid, K9.warp,
+               K9.rigid_correspondences_lattice, rigid_update)
     for kern in kernels:
         kern.launches = 0
     torch.cuda.synchronize()
@@ -2194,9 +2205,10 @@ def phase_icp(torch, dev, depths, lws):
     check(n_corr > 0, "ICP: no correspondences")
     icp = fus.icp_settings()
     searches = icp["rounds"] * (ICP_VIEWS - 1)
-    for name in ("grid_bin", "grid_scatter", "knn_grid"):
-        check(launches[name] == searches, f"ICP: K7 launches {launches}, "
-              f"{searches} searches")
+    for name in ("grid_bin", "grid_scatter", "knn_grid", "warp",
+                 "rigid_correspondences_lattice"):
+        check(launches[name] == searches, f"ICP: K7/K9 launches "
+              f"{launches}, {searches} searches")
     check(launches["rigid_update"] == ICP_VIEWS - 1,
           f"ICP: K8 launches {launches}, {ICP_VIEWS - 1} later views")
     check(len(fus.icp_poses) == ICP_VIEWS - 1,
@@ -2240,7 +2252,56 @@ def phase_icp(torch, dev, depths, lws):
           f"{plain:.4f} ms; bound {row['bound_ms']:.4f} ms "
           f"({row['bound_by']}); registers {info['registers']}, local bytes "
           f"{info['local_bytes']}, CTAs per SM {info['ctas_per_sm']}")
-    return row, launches["knn_grid"]
+
+    # K9 on the same search: the warp against dq_transform_point on the
+    # counted rows, the route against the composition it replaces
+    lw, cv, cn = fus._lw, fus._mesh["verts"], fus._mesh["normals"]
+    tol, n32 = icp["tolerance"], K7._count(n_q, dev)
+    args = (lw, cv, cn, n_q, pts, n_p, k, tol, RES)
+    wv = K9.warp(lw, cv, n32)
+    bad_q = profile_icp_pick.unequal([wv[:rows_q]], [q[:rows_q]])
+    got = K9.rigid_correspondences_lattice(*args)
+    bad = profile_icp_pick.unequal(got,
+                                   rigid_correspondences_twin(*args))
+    check(bad_q == 0 and bad == 0, f"K9: {bad_q} warped elements and {bad} "
+          f"output elements differ from the composition")
+    warp_ms = cuda_ms(torch, lambda: K9.warp(lw, cv, n32))
+    warp_plain = cuda_ms(torch, lambda: (dq_transform_point(lw, cv),
+                                         dq_transform_normal(lw, cn)), reps=3)
+    pick_ms = cuda_ms(torch,
+                      lambda: K9.pick(lw, wv, cn, n32, pts, d, i, tol))
+    wn, found = dq_transform_normal(lw, cn), torch.isfinite(d)
+    pick_plain = cuda_ms(torch, lambda: _pick(q, wn, pts[i], found), reps=3)
+    route_ms = cuda_ms(torch, lambda: K9.rigid_correspondences_lattice(*args))
+    twin_ms = cuda_ms(torch, lambda: rigid_correspondences_twin(*args),
+                      reps=3)
+    # the warp reads and writes 12 bytes a counted row; the pick's bytes
+    # as tools/profile_icp_pick.py counts them; the plain pick timed is
+    # the composition's choice (``_pick``) on K7's result
+    rows = {
+        "knn_grid": row,
+        "warp": dict(max_abs_err=0.0, ms=warp_ms, plain_ms=warp_plain,
+                     **bound(24 * rows_q, 0), library_ms=None,
+                     n_not_equal=bad_q),
+        "rigid_correspondences_lattice": dict(
+            max_abs_err=0.0, ms=pick_ms, plain_ms=pick_plain,
+            **bound(profile_icp_pick.pick_bytes(d, k), 0), library_ms=None,
+            n_not_equal=bad),
+    }
+    info = [K9.kernel_info(which) for which in (0, 1)]
+    print(f"# K9 (icp_pick) on that search: 0 unequal warped and output "
+          f"elements; warp {warp_ms:.4f} ms (bound "
+          f"{rows['warp']['bound_ms']:.4f}, plain warp {warp_plain:.4f}), "
+          f"pick {pick_ms:.4f} ms (bound "
+          f"{rows['rigid_correspondences_lattice']['bound_ms']:.4f}, plain "
+          f"pick {pick_plain:.4f}); the "
+          f"route with K7 {route_ms:.4f} ms, the composition {twin_ms:.4f} "
+          f"ms; registers {info[0]['registers']}/{info[1]['registers']}, "
+          f"local bytes {info[0]['local_bytes']}/{info[1]['local_bytes']}, "
+          f"CTAs per SM {info[0]['ctas_per_sm']}/{info[1]['ctas_per_sm']}")
+    check(all(x["local_bytes"] == 0 for x in info), "K9 spills")
+    names = ("knn_grid", "warp", "rigid_correspondences_lattice")
+    return rows, {name: launches[name] for name in names}
 
 
 def phase_k8(torch, dev):
@@ -2801,6 +2862,10 @@ def main() -> int:
         # K8 replaces no TPU kernel: the JAX package's rigid update is the
         # plain jnp models/tsdf_volume.py:update_tsdf_rigid
         "rigid_update": ("rigid_update.cu", None),
+        # K9 replaces no TPU kernel: the JAX package's rigid ICP warps and
+        # picks in plain jnp (ops/dualquat.py, pipeline/correspondence.py)
+        "warp": ("icp_pick.cu", None),
+        "rigid_correspondences_lattice": ("icp_pick.cu", None),
     }
     total = dict.fromkeys(meta, 0)
     info = print_kernel_info(torch)
@@ -2886,7 +2951,10 @@ def main() -> int:
     k5_n, k1_n = phase_config6(torch, dev, verts, faces, maps, lws)
     total["fuse_depth_multi"] += k5_n
     total["mc_case_cross"] += k1_n
-    rows["knn_grid"], total["knn_grid"] = phase_icp(torch, dev, depths, lws)
+    icp_rows, launches = phase_icp(torch, dev, depths, lws)
+    rows.update(icp_rows)
+    for name, n in launches.items():
+        total[name] += n
     # K8's launches: the ICP branch's, one a later view, and phase 10b's
     rows["rigid_update"], n = phase_k8(torch, dev)
     total["rigid_update"] = ICP_VIEWS - 1 + n

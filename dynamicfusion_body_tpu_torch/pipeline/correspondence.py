@@ -11,7 +11,8 @@ none beats it), and accept when best_cost <= tolerance.
 Variants: the flat exact search, the bf16-keyed search (``approx=True``)
 and the two-level pools (``"2level"``); the exact lattice search (K7) over
 counted rows (:func:`closest_point_correspondences_lattice`, the rigid
-ICP's); the grid-hash search
+ICP's, which on the card runs with its one-DQ warp and its pick as K9,
+``ops/icp_pick_cuda.py``); the grid-hash search
 (:func:`closest_point_correspondences_grid`); one candidate search per
 frame re-ranked every solve round under a drift certificate
 (:func:`correspondence_candidates`,
@@ -24,6 +25,7 @@ from __future__ import annotations
 
 import torch
 
+from ..ops.dualquat import dq_transform_normal, dq_transform_point
 from ..ops.grid_knn import grid_knn
 from ..ops.knn import BIG, knn, knn_2level
 from ..ops.knn_grid_cuda import knn_grid
@@ -86,6 +88,20 @@ def closest_point_correspondences_lattice(
     rows = torch.arange(warped_verts.shape[0], device=warped_verts.device)
     valid = (rows < n_verts) & (best_cost <= tolerance) & found[:, 0]
     return best_pt, valid, best_cost
+
+
+def rigid_correspondences_twin(dq, verts, normals, n_verts, live_verts,
+                               n_live, k: int, tolerance: float,
+                               extent: float):
+    """:func:`closest_point_correspondences_lattice` of the canonical
+    ``verts``/``normals`` moved by the one pose ``dq``: the plain
+    composition that K9 (``ops/icp_pick_cuda.py:
+    rigid_correspondences_lattice``) runs as kernels on the card, and
+    that the CPU runs."""
+    wv = dq_transform_point(dq, verts)
+    wn = dq_transform_normal(dq, normals)
+    return closest_point_correspondences_lattice(
+        wv, wn, n_verts, live_verts, n_live, k, tolerance, extent)
 
 
 def closest_point_correspondences_grid(

@@ -34,8 +34,9 @@ from ..io.warpfield_io import load_warp_field_nodes, save_warp_field
 from ..models import warp_field as WF
 from ..models.tsdf_volume import TsdfVolume, update_tsdf_rigid
 from ..ops.dualquat import dq_blend as _dq_blend
-from ..ops.dualquat import dq_transform_normal, dq_transform_point
+from ..ops.dualquat import dq_transform_point
 from ..ops.fusion_cuda import fuse_depth_multi
+from ..ops.icp_pick_cuda import rigid_correspondences_lattice
 from ..ops.knn import knn as _knn
 from ..ops.marching_cubes import marching_cubes
 from ..ops.projection import estimate_alignment, make_ind_matrix
@@ -46,7 +47,6 @@ from ..solvers.rigid import solve_rigid, solve_rigid_rows
 from ..utils.profiling import host_read, span, traced
 from .correspondence import (
     closest_point_correspondences,
-    closest_point_correspondences_lattice,
     prune_by_plane_cost,
 )
 from .frame import _build_caches
@@ -318,16 +318,16 @@ class FusionDM:
         (reference core/fusion_dm.py:219-244: canonical verts are warped by
         the global DQ only). The search is exact over the valid rows of
         both meshes (K7, ``pipeline/correspondence.py:
-        closest_point_correspondences_lattice``): no host read, and none
-        of the flat search's all-slots cost."""
+        closest_point_correspondences_lattice``), the warp and the pick
+        on the card are K9 (``ops/icp_pick_cuda.py``): no host read, and
+        none of the flat search's all-slots cost."""
         if self._mesh is None:
             self.marching_cubes()
         # live normals are unused (correspondences target positions only)
         live = self.marching_cubes(curr_tsdf, step_size=1, with_normals=False)
-        wv = dq_transform_point(self._lw, self._mesh["verts"])
-        wn = dq_transform_normal(self._lw, self._mesh["normals"])
-        corr, valid, _ = closest_point_correspondences_lattice(
-            wv, wn, self._mesh["n_verts"], live["verts"], live["n_verts"],
+        corr, valid, _ = rigid_correspondences_lattice(
+            self._lw, self._mesh["verts"], self._mesh["normals"],
+            self._mesh["n_verts"], live["verts"], live["n_verts"],
             self._knn, tolerance, extent=self._tsdf_res)
         self._correspondences = corr
         self._corr_valid = valid

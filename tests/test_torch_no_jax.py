@@ -31,7 +31,8 @@ new = {"benchmarks.bench512_sharded", "native", "utils.visualize",
        "tools.convert_tf_dhbc", "tools.profile_mc2", "tools.profile_prims",
        "tools.profile_prims2", "tools.profile_solver", "tools.exp_asm",
        "ops.knn_grid_cuda", "tools.profile_knn_grid", "ops.rigid_update_cuda",
-       "tools.profile_rigid_update"}
+       "tools.profile_rigid_update", "ops.icp_pick_cuda",
+       "tools.profile_icp_pick"}
 missing = {m for m in new if pkg.__name__ + "." + m not in mods}
 assert not missing, missing
 assert "matplotlib" not in sys.modules  # imported lazily, on a call

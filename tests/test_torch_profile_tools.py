@@ -19,8 +19,8 @@ from dynamicfusion_body_tpu_torch.ops import cuda_lib
 from dynamicfusion_body_tpu_torch.ops.trilerp_cuda import (
     ABLATION_MODES, ABLATION_THREADS)
 from dynamicfusion_body_tpu_torch.tools import (
-    _scene, _timing, profile_corr5, profile_frame, profile_mc,
-    profile_solve, profile_trilerp, profile_upd)
+    _scene, _timing, profile_corr5, profile_frame, profile_icp_pick,
+    profile_mc, profile_solve, profile_trilerp, profile_upd)
 from dynamicfusion_body_tpu_torch.utils.profiling import (
     BLOCK, DeviceTrace, device_trace)
 
@@ -64,6 +64,21 @@ def test_tool_rows(tool, capsys):
                 "bytes", "operations")
     out = capsys.readouterr().out
     assert "on cpu" in out and all(name in out for name in rows)
+
+
+def test_profile_icp_pick_arguments():
+    """The card's tool at 32³ on the CPU, where both sides are the plain
+    composition: every case and the search row agree, count the
+    composition's two host reads, and carry no device metric."""
+    rows = profile_icp_pick.main(SMALL)
+    cases = list(profile_icp_pick.edge_cases(torch.device("cpu")))
+    assert [r["case"] for r in rows] == cases + ["search"]
+    for r in rows:
+        assert r["unequal"] == 0 and r["launches"] is None
+        assert r["host_reads"] == r["host_reads_composition"] == 2
+    assert rows[-1]["counted"] > 0 and "k9_ms" not in rows[-1]
+    with pytest.raises(SystemExit):
+        profile_icp_pick.main(SMALL[:2] + ["--reps", "0"])
 
 
 def test_trilerp_bounds_count_this_run():
